@@ -7,7 +7,10 @@ Builds the port's kernels (vg_tpu_torch/csrc/banded_dp.cu and
 csrc/seed_kernels.cu, nvcc) and the native host library
 (vg_tpu_torch/native/vgtpu_host.cpp, g++) from the sources in the checkout,
 all at once, and holds every kernel against its plain PyTorch version on
-the card. Then it drives the port's two mapping paths, each with the
+the card: the banded DP through its three entries (packed text, byte
+text, pre-gathered windows) and the three seeding kernels. The byte-text
+entry also runs under make_paired_step's default score function, against
+the packed step. Then it drives the port's mapping paths, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
 - the host-seeded main path, paired 150 bp giraffe mapping: bench.py's
@@ -17,10 +20,17 @@ kernels' launch counts set to 0 just before it and read just after:
   and the device step against the port's own CPU path;
 - the device-seeded path (GiraffeParams(device_seed=True), the seeding
   kernels), the same way: 8 batches of 6144 pairs, one single-end batch,
-  and the seeded step against the port's CPU path.
+  and the seeded step against the port's CPU path;
+- long-read mapping, bench.py's long-read sidecar at its size: 512 reads
+  of 10 kb (0.5% substitutions) on the same pangenome and minimizer
+  index, LongReadMapper with engine="native" and then engine="device"
+  (the link engine, ops/device_links.py, in torch ops on the card); 16
+  reads warm the native engine, the device engine warms on the 496 timed
+  reads. The two engines' 496 records must be byte-identical.
 
 It checks the records (count, placement against the simulated truth, the
-card against the CPU). Imports nothing of JAX or vg_tpu.
+card against the CPU, the long-read engines against each other).
+Imports nothing of JAX or vg_tpu.
 
 Output: one line per phase, then a JSON line with the kernels' numbers,
 the card's name and power limit, and as the last line
@@ -43,6 +53,7 @@ import torch
 BAND = 16                 # GiraffeParams.band_radius, the main path's
 BATCH = 6144              # bench.py's pairs a batch (BENCH_BATCH default)
 N_BATCHES = 8             # batches streamed through the pipeline
+LR_READS, LR_WARM, LR_LEN = 512, 16, 10_000   # bench.py's long-read sidecar
 # H100 SXM peaks. No instruction mix issues more than one warp
 # instruction per scheduler per clock: 132 SMs x 4 schedulers x 32 lanes
 # x 1.98 GHz = 33.4 T lane-operations/s is the integer DP's ceiling (the
@@ -197,17 +208,22 @@ def kernel_launches() -> dict:
     """Each kernel's launch count (the wrappers count their launches)."""
     from vg_tpu_torch.ops import cuda_align, cuda_seed
 
-    return {"banded_dp": cuda_align.banded_scores_packed.launches,
-            "softcap_compact": cuda_seed.softcap_compact.launches,
-            "cluster_topc": cuda_seed.cluster_topc.launches,
-            "argsort_i32": cuda_seed.argsort_i32.launches}
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def kernel_wrappers() -> dict:
+    from vg_tpu_torch.ops import cuda_align, cuda_seed
+
+    return {"banded_dp": cuda_align.banded_scores_packed,
+            "banded_dp_bytes": cuda_align.banded_scores_bytes,
+            "banded_dp_windows": cuda_align.banded_scores_windows,
+            "softcap_compact": cuda_seed.softcap_compact,
+            "cluster_topc": cuda_seed.cluster_topc,
+            "argsort_i32": cuda_seed.argsort_i32}
 
 
 def reset_launches() -> None:
-    from vg_tpu_torch.ops import cuda_align, cuda_seed
-
-    for fn in (cuda_align.banded_scores_packed, cuda_seed.softcap_compact,
-               cuda_seed.cluster_topc, cuda_seed.argsort_i32):
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
@@ -704,30 +720,41 @@ def phase_seed_kernels(mapper, reads):
     return out
 
 
-def phase_profile(pm, pairs, bs, n_batches, label, top=12):
-    """One more pass of a paired stream under torch.profiler: device time
-    by kernel, and the device's busy share of the wall time (kernels and
-    copies on the card, summed; the pipeline uses one stream)."""
+def profiled(fn):
+    """Run fn under torch.profiler: (its device events as (name, µs),
+    wall seconds). Reads the profiler's raw events: building its event
+    tree (`events()`) costs tens of µs an event, and one long-read batch
+    on the device engine records some 180,000 kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from vg_tpu_torch.parallel.pipeline import map_pairs_encoded_mt
-
-    stream = pairs[bs : bs * (n_batches + 1)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        n = sum(len(o) for o in map_pairs_encoded_mt(
-            pm, (stream[i : i + bs] for i in range(0, len(stream), bs))))
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA], wall
+
+
+def phase_profile(pm, pairs, bs, n_batches, label, top=12):
+    """One more pass of a paired stream under torch.profiler: device time
+    by kernel, and the device's busy share of the wall time (kernels and
+    copies on the card, summed; the pipeline uses one stream)."""
+    from vg_tpu_torch.parallel.pipeline import map_pairs_encoded_mt
+
+    stream = pairs[bs : bs * (n_batches + 1)]
+    out = []
+    events, wall = profiled(lambda: out.extend(map_pairs_encoded_mt(
+        pm, (stream[i : i + bs] for i in range(0, len(stream), bs)))))
+    n = sum(len(o) for o in out)
     by_name, calls = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-            calls[e.name] = calls.get(e.name, 0) + 1
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
+        calls[name] = calls.get(name, 0) + 1
     busy = sum(by_name.values())
     log(f"profile, {label}: {n} records in {wall:.3f} s wall, device busy "
         f"{busy:.2f} ms ({100 * busy / (1e3 * wall):.2f}% of wall, idle "
@@ -739,9 +766,321 @@ def phase_profile(pm, pairs, bs, n_batches, label, top=12):
         f"{sum(sorts.values()):.3f} ms ({', '.join(sorted(sorts))[:300]})")
 
 
+def gather_windows(text_t, t, B):
+    """The (N, TW) windows, oriented reads and lengths of a candidate
+    table, as banded_scores_via_pallas hands them to the TPU kernel
+    (banded_scores_pallas): windows masked to [lo, hi) with sentinel 6,
+    invalid slots rlen 0. N = R * C, a multiple of 128 on these tables."""
+    reads, reads_rc, rlen, start, lo, hi, rev, valid = t
+    R, RL = reads.shape
+    C = start.shape[1]
+    T = text_t.shape[0]
+    pos = (start.reshape(-1).to(torch.int64)[:, None]
+           + torch.arange(RL + 2 * B, device=text_t.device))
+    ok = ((pos >= lo.reshape(-1)[:, None]) & (pos < hi.reshape(-1)[:, None])
+          & (pos >= 0) & (pos < T))
+    win = torch.where(ok, text_t[pos.clamp(0, T - 1)], 6).to(torch.uint8)
+    rd = torch.where(rev.reshape(-1)[:, None],
+                     reads_rc.repeat_interleave(C, 0),
+                     reads.repeat_interleave(C, 0)).contiguous()
+    rl = torch.where(valid.reshape(-1), rlen[:R].repeat_interleave(C),
+                     0).to(torch.int32)
+    return win, rd, rl
+
+
+def time_entry(kern, plain, nbytes, ops):
+    """Kernel and plain-version milliseconds (plain, kernel, kernel, plain)
+    and the bound of the work."""
+    p1 = cuda_ms(plain, 3)
+    k1 = cuda_ms(kern, 50)
+    k2 = cuda_ms(kern, 50)
+    p2 = cuda_ms(plain, 3)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return dict(ms=min(k1, k2), plain_ms=min(p1, p2),
+                bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="operations" if t_o >= t_b else "bytes",
+                bytes=nbytes, ops=ops, kernel_runs_ms=[k1, k2],
+                plain_runs_ms=[p1, p2])
+
+
+def phase_dp_entries(text, real_batches):
+    """Kernels 1c (banded_dp_bytes) and 1b (banded_dp_windows) against
+    their plain versions on the card, exact: on the main path's first
+    batch (1c on the byte text and its candidate tables, 1b on the windows
+    gathered from them: N = 49,152 slots, TW = 192), on adversarial
+    batches at B = 8, 12 and 16, and for 1b on a batch with rlen > RL at
+    RL = 157 (pad rows up to RLP = 160). On every batch with rlen <= RL
+    each also equals the packed kernel's scores on the same slots. Times
+    and bounds on the main path's first batch. Returns each entry's
+    numbers and the launches of its checks (the timing runs apart)."""
+    from vg_tpu_torch.ops import align, cuda_align
+
+    dev = torch.device("cuda")
+    T = len(text)
+    text_t = torch.as_tensor(text, device=dev)
+    packed = torch.as_tensor(cuda_align.pack_text(text), device=dev)
+    rng = np.random.default_rng(4)
+    cases = [("main path batch 0", BAND, real_batches[0])] + [
+        (f"adversarial R=1024 B={b}", b, adversarial_batch(rng, text, 1024,
+                                                           B=b))
+        for b in (8, 12, BAND)]
+    put = lambda arrs: [torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                        for x in arrs]
+    out = {name: dict(mismatches=0, max_abs_err=0, vs_packed=0)
+           for name in ("banded_dp_bytes", "banded_dp_windows")}
+    reset_launches()
+    for label, b, arrs in cases:
+        t = put(arrs)
+        pk = cuda_align.banded_scores_packed(packed, T, *t, band_radius=b)
+        got_b = cuda_align.banded_scores_bytes(text_t, *t, band_radius=b)
+        win, rd, rl = gather_windows(text_t, t, b)
+        got_w = cuda_align.banded_scores_windows(win, rd, rl, band_radius=b)
+        torch.cuda.synchronize()
+        want_b = align.banded_scores(text_t, *t, band_radius=b)
+        want_w = cuda_align.banded_scores_windows_ref(win, rd, rl,
+                                                      band_radius=b)
+        for name, got, want, same in (
+                ("banded_dp_bytes", got_b, want_b, pk),
+                ("banded_dp_windows", got_w, want_w,
+                 pk.reshape(-1).clamp_min(0))):
+            bad, err = max_err((got,), (want,))
+            n_pk = int((got != same).sum())
+            log(f"{name} vs plain, {label}: {tuple(got.shape)} {bad} "
+                f"mismatches, max |err| {err}; {n_pk} differ from the "
+                f"packed kernel")
+            o = out[name]
+            o["mismatches"] += bad
+            o["max_abs_err"] = max(o["max_abs_err"], err)
+            o["vs_packed"] += n_pk
+        if label == "main path batch 0":
+            main = (t, win, rd, rl)
+    # 1b past RL: 157-column read rows, a fifth of the slots longer
+    t = put(adversarial_batch(rng, text, 1024, RL=157))
+    win, rd, rl = gather_windows(text_t, t, BAND)
+    over = torch.as_tensor(rng.random(rl.shape[0]) < 0.2, device=dev)
+    rl = torch.where(over & (rl > 0), rl + torch.as_tensor(
+        rng.integers(1, 13, rl.shape[0]), device=dev), rl).to(torch.int32)
+    got = cuda_align.banded_scores_windows(win, rd, rl, band_radius=BAND)
+    torch.cuda.synchronize()
+    bad, err = max_err((got,), (cuda_align.banded_scores_windows_ref(
+        win, rd, rl, band_radius=BAND),))
+    log(f"banded_dp_windows vs plain, rlen > RL (RL=157, "
+        f"{int((rl > 157).sum())} slots past RL, {int((rl > 160).sum())} "
+        f"past RLP): {bad} mismatches, max |err| {err}")
+    out["banded_dp_windows"]["mismatches"] += bad
+    out["banded_dp_windows"]["max_abs_err"] = max(
+        out["banded_dp_windows"]["max_abs_err"], err)
+    launches = kernel_launches()
+    for name, o in out.items():
+        if o["mismatches"] or o["vs_packed"]:
+            raise AssertionError(f"{name}: {o['mismatches']} mismatches "
+                                 f"with its plain version, {o['vs_packed']} "
+                                 f"with the packed kernel")
+        o["check_launches"] = launches[name]
+    t, win, rd, rl = main
+    nbytes, ops = cuda_align.dp_work(t[0], t[2], t[-1], T, BAND,
+                                     source="bytes")
+    out["banded_dp_bytes"].update(time_entry(
+        lambda: cuda_align.banded_scores_bytes(text_t, *t, band_radius=BAND),
+        lambda: align.banded_scores(text_t, *t, band_radius=BAND),
+        nbytes, ops), shape=f"R={t[0].shape[0]} C={t[3].shape[1]} "
+                            f"RL={t[0].shape[1]} B={BAND} T={T}")
+    nbytes, ops = cuda_align.dp_work(rd, rl, None, win.numel(), BAND,
+                                     source="windows")
+    out["banded_dp_windows"].update(time_entry(
+        lambda: cuda_align.banded_scores_windows(win, rd, rl,
+                                                 band_radius=BAND),
+        lambda: cuda_align.banded_scores_windows_ref(win, rd, rl,
+                                                     band_radius=BAND),
+        nbytes, ops), shape=f"N={win.shape[0]} TW={win.shape[1]} "
+                            f"RL={rd.shape[1]} B={BAND}")
+    return out
+
+
+def phase_byte_step(haps, mates):
+    """make_paired_step() with its default score function, the byte-text
+    DP (kernel 1c for CUDA tensors), against the step the mapper builds
+    on the packed text (kernel 1) on the main path's first batch: every
+    output equal, MAPQs included. Returns 1c's launches in it."""
+    from vg_tpu_torch.ops import cuda_align
+    from vg_tpu_torch.parallel.mesh import make_paired_step
+
+    dev = torch.device("cuda")
+    text = haps.text
+    T = len(text)
+    args = []
+    for m in mates:
+        R = len(m["cand_refpath"])
+        t = [torch.as_tensor(np.ascontiguousarray(m[k][:R]), device=dev)
+             for k in ("reads_arr", "reads_rc_arr", "rlens", "cand_start",
+                       "cand_lo", "cand_hi", "cand_rev", "cand_valid",
+                       "cand_refpath")]
+        ro = torch.as_tensor(m["cand_refoff"].astype(np.int32), device=dev)
+        args += [t[0], t[1], t[2], (*t[3:], ro)]
+    mu = torch.tensor(450.0, device=dev)
+    sd = torch.tensor(50.0, device=dev)
+
+    def packed_fn(tp, reads, rc, rlen, cand):
+        return cuda_align.banded_scores_packed(tp, T, reads, rc, rlen,
+                                               *cand[:5], band_radius=BAND)
+
+    packed_step = make_paired_step(band_radius=BAND, score_fn=packed_fn,
+                                   text_packed=True, text_len=T)
+    want = packed_step(torch.as_tensor(cuda_align.pack_text(text),
+                                       device=dev), *args, mu, sd)
+    before = cuda_align.banded_scores_bytes.launches
+    got = make_paired_step(band_radius=BAND)(
+        torch.as_tensor(text, device=dev), *args, mu, sd)
+    torch.cuda.synchronize()
+    n = cuda_align.banded_scores_bytes.launches - before
+    names = ["s1", "s2", "j1", "j2", "mq1", "mq2", "use_pair", "frags",
+             "mm1", "mm2", "bits1", "bits2", "stats", "cov"]
+    bad = {k: int((g != w).sum()) for k, g, w in zip(names, got, want)}
+    log(f"byte-text paired step (default score function) vs packed step, "
+        f"{args[0].shape[0]} pairs: {sum(bad.values())} differing entries "
+        f"({json.dumps(bad)}), {int(got[6].sum())} pairs chosen, "
+        f"banded_dp_bytes launched {n} times")
+    assert sum(bad.values()) == 0, f"byte-text step differs: {bad}"
+    assert n == 2, f"the byte-text step launched banded_dp_bytes {n} times"
+    return n
+
+
+def longread_reads(rng, haps):
+    """bench.py's long-read sidecar reads: LR_READS reads of LR_LEN bp from
+    the haplotype text, 0.5% substitutions; with their start positions."""
+    from vg_tpu_torch.io.fastq import Read
+    from vg_tpu_torch.utils import dna
+
+    T = len(haps.text)
+    reads, starts = [], []
+    for i in range(LR_READS):
+        s = int(rng.integers(0, T - LR_LEN - 100))
+        c = haps.text[s : s + LR_LEN].copy()
+        err = rng.random(len(c)) < 0.005
+        c[err] = (c[err] + rng.integers(1, 4, int(err.sum()))) % 4
+        reads.append(Read(name=f"lr{i}", sequence=dna.decode(c), quality=""))
+        starts.append(s)
+    return reads, starts
+
+
+def longread_placed(lrm, recs, reads, starts) -> float:
+    """Share of records placed as tests/test_longread.py requires: the
+    first refpos within 1000 bp of the read start's reference position
+    (or within 1050 bp of its end, for a reverse placement)."""
+    from vg_tpu_torch.io.gam import Alignment
+
+    ok = 0
+    for rec, read, s in zip(recs, reads, starts):
+        aln = Alignment.decode(bytes(rec))
+        if not aln.refpos:
+            continue
+        got = aln.refpos[0].offset
+        node, off, _ = lrm.haps.text_pos_to_graph(int(s))
+        fwd = lrm.path_pos.positions_of(node, off, False)
+        w = fwd[0].offset if fwd else -1
+        ok += (abs(got - w) <= 1000
+               or abs(got - (w + len(read.sequence))) <= 1050)
+    return ok / max(len(recs), 1)
+
+
+def phase_longread(haps, idx, card, seed):
+    """Long-read mapping at bench.py's sidecar size with each engine; the
+    device engine's 496 records byte-identical to the native engine's,
+    placement >= 95%, the card's link_engine equal to the CPU's on one
+    bucket, and the link engine's numbers (tasks, fill / walk / fetch,
+    launches under the profiler)."""
+    from vg_tpu_torch.map.longread import LongReadMapper, LongReadParams
+    from vg_tpu_torch.ops import device_links
+
+    t_phase = time.time()
+    reads, starts = longread_reads(np.random.default_rng(seed + 7), haps)
+    warm, timed = reads[:LR_WARM], reads[LR_WARM:]
+    n_timed = len(timed)
+    nat = LongReadMapper(haps, idx)
+    nat.map_batch_encoded(warm)
+    t0 = time.time()
+    recs_n = nat.map_batch_encoded(timed)
+    dt_n = time.time() - t0
+    dv = LongReadMapper(haps, idx, LongReadParams(engine="device"))
+    dla = dv._device_aligner()
+    captured = {}
+    engine = dla._engine
+
+    def capture(*a):                      # the warm pass's engine inputs
+        captured.setdefault(a[-1], a)
+        return engine(*a)
+
+    dla._engine = capture
+    t0 = time.time()
+    dv.map_batch_encoded(timed)           # warm at the full batch
+    dt_warm = time.time() - t0
+    dla._engine = engine
+    dla.stats = {}
+    t0 = time.time()
+    recs_d = dv.map_batch_encoded(timed)
+    dt_d = time.time() - t0
+    st, dla.stats = dla.stats, None
+    assert len(recs_n) == len(recs_d) == n_timed, (len(recs_n), len(recs_d))
+    n_diff = sum(1 for a, b in zip(recs_n, recs_d) if bytes(a) != bytes(b))
+    frac = longread_placed(nat, recs_n, timed, starts[LR_WARM:])
+    buckets = st.get("buckets", {})
+    on_card = sum(b["certified"] for b in buckets.values())
+    log(f"long reads: {n_timed} x {LR_LEN} bp; native engine {dt_n:.3f} s "
+        f"= {n_timed / dt_n:.1f} reads/s; device engine {dt_d:.3f} s = "
+        f"{n_timed / dt_d:.1f} reads/s (warm pass {dt_warm:.3f} s); "
+        f"{n_diff} of {n_timed} records differ; {100 * frac:.2f}% placed "
+        f"within 1000 bp on {card}")
+    log(f"long-read slow links: {st.get('tasks', 0)} tasks, {on_card} "
+        f"resolved on the card, {st.get('tasks', 0) - on_card} on the host; "
+        f"per bucket {json.dumps(buckets)}; link engine fill "
+        f"{st.get('fill', 0):.4f} s, walk {st.get('walk', 0):.4f} s, fetch "
+        f"{st.get('fetch', 0):.4f} s")
+    events, wall = profiled(lambda: dv.map_batch_encoded(timed))
+    copies = sum(1 for name, _ in events
+                 if "memcpy" in name.lower() or "memset" in name.lower())
+    busy = sum(us for _, us in events) / 1e3
+    log(f"long-read device engine under the profiler: {len(events)} device "
+        f"events ({len(events) - copies} kernels, {copies} copies/sets) in "
+        f"{wall:.3f} s wall, device busy {busy:.2f} ms (idle "
+        f"{100 - 100 * busy / (1e3 * wall):.2f}%)")
+    # the card's link_engine against the same function on the CPU
+    a4, la, ta, ba, lb, RMAX = captured[256]
+    sc = dv.scoring
+    kw = dict(RMAX=RMAX, WB=4 * dla.B + 1, T=dla.T, match=sc.match,
+              mismatch=sc.mismatch, gap_open=sc.gap_open,
+              gap_extend=sc.gap_extend)
+    outs = []
+    for on in ("cuda", "cpu"):
+        put = lambda x: torch.as_tensor(x, device=on)
+        t0 = time.time()
+        outs.append([x.cpu() for x in device_links.link_engine(
+            put(a4.view(np.int32)), put(la), put(ta), put(ba), put(lb),
+            dla.text_packed.to(on), **kw)])
+        log(f"link_engine bucket {RMAX} on {on}: {a4.shape[0]} tasks in "
+            f"{time.time() - t0:.3f} s")
+    bad = {k: int((g != w).sum()) for k, g, w in zip(
+        ("score", "ops", "n_steps", "complete"), *outs)}
+    log(f"link_engine card vs CPU, bucket {RMAX}: {json.dumps(bad)} "
+        f"differing entries")
+    log(f"long-read phase {time.time() - t_phase:.1f} s")
+    assert sum(bad.values()) == 0, f"link_engine differs on the card: {bad}"
+    assert n_diff == 0, f"{n_diff} long-read records differ between engines"
+    assert frac >= 0.95, frac
+    assert on_card > 0, "the device engine resolved no link on the card"
+    return dict(native_rps=n_timed / dt_n, device_rps=n_timed / dt_d)
+
+
+# the kernels the device-seeded path launches (banded_dp_bytes and
+# banded_dp_windows lie on no path: vg_tpu runs them only in benchmarks)
+SEEDED_PATH_KERNELS = ["banded_dp", "softcap_compact", "cluster_topc",
+                       "argsort_i32"]
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "banded_dp": ("vg_tpu_torch/csrc/banded_dp.cu",
                   "vg_tpu/ops/pallas_align.py:47"),
+    "banded_dp_bytes": ("vg_tpu_torch/csrc/banded_dp.cu",
+                        "vg_tpu/ops/pallas_align.py:205"),
+    "banded_dp_windows": ("vg_tpu_torch/csrc/banded_dp.cu",
+                          "vg_tpu/ops/pallas_align.py:148"),
     "softcap_compact": ("vg_tpu_torch/csrc/seed_kernels.cu",
                         "vg_tpu/ops/pallas_seed.py:195"),
     "cluster_topc": ("vg_tpu_torch/csrc/seed_kernels.cu",
@@ -775,10 +1114,11 @@ def main(argv=None) -> int:
 
     probe = GiraffeMapper(haps, idx, GiraffeParams(batch_reads=bs))
     probe._mem_fallback_index = mem
-    real = []
+    real, mates = [], []
     for mate in (0, 1):
         pr = probe.prepare_batch([p[mate] for p in pairs[bs : 2 * bs]],
                                  want_packed2=False)
+        mates.append(pr)
         real.append(tuple(pr[k] for k in (
             "reads_arr", "reads_rc_arr", "rlens", "cand_start", "cand_lo",
             "cand_hi", "cand_rev", "cand_valid")))
@@ -797,6 +1137,16 @@ def main(argv=None) -> int:
             f"({k['bound_by']}; {k['ops']:.3e} ops, {k['bytes']} bytes), "
             f"library {k['library_ms']} ms on {card}")
     main_k = kern["timed"]["main path batch 0"]
+    entries = phase_dp_entries(haps.text, real)
+    step_launches = phase_byte_step(haps, mates)
+    entries["banded_dp_bytes"]["check_launches"] += step_launches
+    for name, k in entries.items():
+        log(f"{name} at {k['shape']}, main path batch 0: kernel "
+            f"{k['ms']:.4f} ms (runs {k['kernel_runs_ms']}), plain "
+            f"{k['plain_ms']:.2f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_by']}; {k['ops']:.3e} int32 ops, {k['bytes']} "
+            f"bytes), {k['check_launches']} launches in its checks on "
+            f"{card}")
 
     # host-seeded main path, then single-end and the card-vs-CPU step
     pm, host_recs, res = phase_main_path(haps, idx, mem, pairs, truth, bs,
@@ -813,7 +1163,8 @@ def main(argv=None) -> int:
     spm, seeded_recs, sres = phase_main_path(
         haps, idx, mem, pairs, truth, bs, N_BATCHES, device_seed=True)
     log_path("device-seeded path", sres, card)
-    for name, n in sres["stream_launches"].items():
+    for name in SEEDED_PATH_KERNELS:
+        n = sres["stream_launches"][name]
         assert n >= 2 * N_BATCHES, f"{name} launched {n} times while the " \
             f"seeded path streamed {N_BATCHES} batches"
     assert sres["placed"] >= 0.95, sres["placed"]
@@ -823,11 +1174,15 @@ def main(argv=None) -> int:
         f"of {len(host_recs)} differ (the host path re-seeds reads without "
         f"candidates from the MEM index; device seeding does not)")
     phase_score_split(pm, spm, pairs[bs : 2 * bs])
-    phase_single_end(spm, pairs[bs:], bs, list(KERNELS))
+    phase_single_end(spm, pairs[bs:], bs, SEEDED_PATH_KERNELS)
     phase_reference_seeded(haps, idx, spm, pairs[bs : bs + 1024])
     if args.profile:
         phase_profile(pm, pairs, bs, N_BATCHES, "host seeding")
         phase_profile(spm, pairs, bs, N_BATCHES, "device seeding")
+    del pm, spm, host_recs, seeded_recs
+
+    # long-read mapping, both engines
+    phase_longread(haps, idx, card, args.seed)
     log(f"total {time.time() - t_start:.1f} s")
 
     rows = []
@@ -836,6 +1191,9 @@ def main(argv=None) -> int:
             k = dict(main_k, mismatches=kern["mismatches"],
                      max_abs_err=kern["max_abs_err"], library_ms=None)
             n = res["launches"][name]
+        elif name in entries:        # on no path: their checks' launches
+            k = dict(entries[name], library_ms=None)
+            n = k["check_launches"]
         else:
             k = seedk[name]
             n = sres["stream_launches"][name]

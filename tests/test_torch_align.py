@@ -94,3 +94,109 @@ def test_pack_text_byte_equal(T):
     got = cuda_align.pack_text(text)
     assert got.dtype == want.dtype == np.int32
     assert got.tobytes() == want.tobytes()
+
+
+def pallas_1c(args, B):
+    """What banded_scores_via_pallas (which has no interpret mode) computes:
+    the lane windows and oriented reads it gathers, pushed through
+    banded_scores_pallas in interpret mode, -1 on invalid slots."""
+    text, reads, reads_rc, rlen, start, lo, hi, rev, valid = args
+    R, C = start.shape
+    RL = reads.shape[1]
+    TW = RL + 2 * B
+    N = R * C
+    NP = -(-N // 128) * 128
+    pos = start.reshape(-1).astype(np.int64)[:, None] + np.arange(TW)
+    ok = ((pos >= lo.reshape(-1)[:, None]) & (pos < hi.reshape(-1)[:, None])
+          & (pos >= 0) & (pos < len(text)))
+    win = np.full((NP, TW), 6, np.uint8)
+    win[:N] = np.where(ok, text[np.clip(pos, 0, len(text) - 1)], 6)
+    rd = np.full((NP, RL), 5, np.uint8)
+    rd[:N] = np.where(rev.reshape(-1)[:, None], np.repeat(reads_rc, C, 0),
+                      np.repeat(reads, C, 0))
+    rl = np.zeros(NP, np.int32)
+    rl[:N] = np.where(valid.reshape(-1), np.repeat(rlen, C), 0)
+    res = np.asarray(banded_scores_pallas(
+        jnp.asarray(win), jnp.asarray(rd), jnp.asarray(rl), band_radius=B,
+        interpret=True))[:N].reshape(R, C)
+    return np.where(valid, res, -1)
+
+
+@pytest.mark.parametrize("B", [8, 16])
+def test_bytes_entry_equals_jax(B):
+    """Kernel 1c's plain version (the CPU path of banded_scores_bytes)
+    against its contract, the XLA scan, and against what 1c computes: its
+    gathered windows through the Pallas kernel in interpret mode."""
+    args = dp_batch(30 + B, B)
+    before = cuda_align.banded_scores_bytes.launches
+    got = cuda_align.banded_scores_bytes(*torch_args(args),
+                                         band_radius=B).numpy()
+    assert cuda_align.banded_scores_bytes.launches == before
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, jax_scores(args, B))
+    np.testing.assert_array_equal(got, pallas_1c(args, B))
+
+
+def windows_batch(seed, B, R=64, C=4, RL=61):
+    """Pre-gathered windows, oriented reads and lengths of dp_batch's
+    slots at RL % 8 != 0, with slots past RL (rlen up to RL + 12: inside
+    and beyond the TPU kernel's pad rows) and empty slots (rlen 0)."""
+    text, reads, reads_rc, rlen, start, lo, hi, rev, _ = dp_batch(
+        seed, B, R=R, C=C, RL=RL)
+    TW = RL + 2 * B
+    pos = start.reshape(-1).astype(np.int64)[:, None] + np.arange(TW)
+    ok = ((pos >= lo.reshape(-1)[:, None]) & (pos < hi.reshape(-1)[:, None])
+          & (pos >= 0) & (pos < len(text)))
+    win = np.where(ok, text[np.clip(pos, 0, len(text) - 1)],
+                   6).astype(np.uint8)
+    rd = np.where(rev.reshape(-1)[:, None], np.repeat(reads_rc, C, 0),
+                  np.repeat(reads, C, 0)).astype(np.uint8)
+    rl = np.repeat(rlen, C).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    over = rng.random(len(rl)) < 0.2
+    rl[over] = RL + rng.integers(1, 13, int(over.sum()))
+    rl[rng.random(len(rl)) < 0.05] = 0
+    return win, rd, rl
+
+
+@pytest.mark.parametrize("B", [8, 12, 16])
+def test_windows_entry_equals_pallas_interpret(B):
+    """Kernel 1b's wrapper on the CPU against banded_scores_pallas in
+    interpret mode, rlen > RL at RL % 8 != 0 included: both run
+    min(rlen, RLP) rows, RLP = 64 here."""
+    win, rd, rl = windows_batch(40 + B, B)
+    assert (rl > rd.shape[1]).any() and (rl > 64).any()
+    want = np.asarray(banded_scores_pallas(
+        jnp.asarray(win), jnp.asarray(rd), jnp.asarray(rl), band_radius=B,
+        interpret=True))
+    before = cuda_align.banded_scores_windows.launches
+    got = cuda_align.banded_scores_windows(
+        *torch_args((win, rd, rl)), band_radius=B).numpy()
+    assert cuda_align.banded_scores_windows.launches == before
+    assert got.dtype == np.int32 and got.shape == (len(rl),)
+    np.testing.assert_array_equal(got, want)
+    assert (got[rl == 0] == 0).all()
+
+
+def test_windows_past_rl_differ_from_unpadded_dp():
+    """Why the windows entry pads: ops/align.banded_dp alone stops at RL
+    rows, as the XLA scan does, and misses the rows the TPU kernel runs
+    for rlen in (RL, RLP] (their end bonus, here)."""
+    win, rd, rl = windows_batch(50, 12)
+    t_win, t_rd, t_rl = torch_args((win, rd, rl))
+    unpadded = t_align.banded_dp(t_win, t_rd, t_rl, band_radius=12, match=1,
+                                 mismatch=4, gap_open=6, gap_extend=1,
+                                 bonus=5)
+    padded = cuda_align.banded_scores_windows(t_win, t_rd, t_rl,
+                                              band_radius=12)
+    inside = rl <= rd.shape[1]
+    assert torch.equal(unpadded[inside], padded[inside])
+    assert (unpadded != padded).any()
+
+
+def test_windows_entry_takes_whole_lanes_only():
+    win, rd, rl = windows_batch(51, 8)
+    with pytest.raises(AssertionError, match="multiple of 128"):
+        cuda_align.banded_scores_windows(*torch_args((win[:100], rd[:100],
+                                                      rl[:100])),
+                                         band_radius=8)

@@ -1,5 +1,6 @@
 """The banded-DP kernel (vg_tpu_torch/csrc/banded_dp.cu) against its
-plain PyTorch version, and the wrapper's routing, checks and work count.
+plain PyTorch versions through its three entries (packed text, byte text,
+pre-gathered windows), and the wrappers' routing, checks and work count.
 Imports no JAX, so the `gpu` tests also run on a machine that has only
 the card's stack:
 
@@ -137,6 +138,99 @@ def test_kernel_equals_plain_version_on_card(cuda_device, B):
     assert cuda_align.banded_scores_packed.launches == before + 1
     want = cuda_align.banded_scores_packed_ref(packed, len(args[0]), *targs,
                                                band_radius=B)
+    assert torch.equal(got, want)
+
+
+def windows_from(args, B, over_seed=None):
+    """The (N, TW) windows, oriented reads and lengths of a dp_batch's
+    slots (N = R * C); with over_seed, a fifth of the slots get rlen past
+    RL (up to RL + 12) and some rlen 0."""
+    text, reads, reads_rc, rlen, start, lo, hi, rev, _ = args
+    C = start.shape[1]
+    TW = reads.shape[1] + 2 * B
+    pos = start.reshape(-1).astype(np.int64)[:, None] + np.arange(TW)
+    ok = ((pos >= lo.reshape(-1)[:, None]) & (pos < hi.reshape(-1)[:, None])
+          & (pos >= 0) & (pos < len(text)))
+    win = np.where(ok, text[np.clip(pos, 0, len(text) - 1)],
+                   6).astype(np.uint8)
+    rd = np.where(rev.reshape(-1)[:, None], np.repeat(reads_rc, C, 0),
+                  np.repeat(reads, C, 0)).astype(np.uint8)
+    rl = np.repeat(rlen, C).astype(np.int32)
+    if over_seed is not None:
+        rng = np.random.default_rng(over_seed)
+        over = rng.random(len(rl)) < 0.2
+        rl[over] = reads.shape[1] + rng.integers(1, 13, int(over.sum()))
+        rl[rng.random(len(rl)) < 0.05] = 0
+    return win, rd, rl
+
+
+def test_byte_and_window_entries_agree_with_packed_on_cpu():
+    """On the same slots the three plain versions give the same scores
+    (rlen <= RL; invalid slots: -1 from the text entries, and 0 from the
+    windows entry, whose slots are then given rlen 0)."""
+    B = 12
+    args = dp_batch(21, B)
+    text = args[0]
+    packed = torch.from_numpy(cuda_align.pack_text(text))
+    want = cuda_align.banded_scores_packed(packed, len(text),
+                                           *torch_args(args[1:]),
+                                           band_radius=B)
+    got = cuda_align.banded_scores_bytes(*torch_args(args), band_radius=B)
+    assert torch.equal(got, want)
+    win, rd, rl = windows_from(args, B)
+    valid = args[-1].reshape(-1)
+    rl = np.where(valid, rl, 0).astype(np.int32)
+    w = cuda_align.banded_scores_windows(*torch_args((win, rd, rl)),
+                                         band_radius=B)
+    assert torch.equal(w, want.reshape(-1).clamp_min(0))
+
+
+def test_dp_work_of_each_source():
+    """Byte text counts one byte a base; windows count every slot's
+    min(rlen, RLP) rows, RLP = RL rounded up to 8, and their own bytes."""
+    reads = torch.zeros((2, 10), dtype=torch.uint8)
+    rlen = torch.tensor([10, 4], dtype=torch.int32)
+    valid = torch.tensor([[True, False, True], [True, True, False]])
+    nbytes, ops = cuda_align.dp_work(reads, rlen, valid, 100, 8,
+                                     source="bytes")
+    assert ops == cuda_align.OPS_PER_CELL * 17 * (10 * 2 + 4 * 2)
+    assert nbytes == 100 + 2 * 20 + 8 + 6 * 14 + 6 * 4
+    wreads = torch.zeros((128, 10), dtype=torch.uint8)
+    wrlen = torch.zeros(128, dtype=torch.int32)
+    wrlen[:3] = torch.tensor([10, 20, 4], dtype=torch.int32)
+    nbytes, ops = cuda_align.dp_work(wreads, wrlen, None, 128 * 26, 8,
+                                     source="windows")
+    assert ops == cuda_align.OPS_PER_CELL * 17 * (10 + 16 + 4)
+    assert nbytes == 128 * 26 + 128 * 10 + 4 * 128 + 4 * 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 12, 16])
+def test_byte_entry_equals_plain_version_on_card(cuda_device, B):
+    """banded_dp_bytes against ops/align.banded_scores on the card."""
+    args = dp_batch(25 + B, B, R=512, C=8, RL=160, T=200_000)
+    targs = [t.to(cuda_device) for t in torch_args(args)]
+    before = cuda_align.banded_scores_bytes.launches
+    got = cuda_align.banded_scores_bytes(*targs, band_radius=B)
+    torch.cuda.synchronize()
+    assert cuda_align.banded_scores_bytes.launches == before + 1
+    want = t_align.banded_scores(*targs, band_radius=B)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 12, 16])
+def test_window_entry_equals_plain_version_on_card(cuda_device, B):
+    """banded_dp_windows against its plain version on the card, with slots
+    past RL at RL % 8 != 0 and empty slots."""
+    args = dp_batch(35 + B, B, R=512, C=8, RL=157, T=200_000)
+    arrs = windows_from(args, B, over_seed=B)
+    win, rd, rl = [t.to(cuda_device) for t in torch_args(arrs)]
+    before = cuda_align.banded_scores_windows.launches
+    got = cuda_align.banded_scores_windows(win, rd, rl, band_radius=B)
+    torch.cuda.synchronize()
+    assert cuda_align.banded_scores_windows.launches == before + 1
+    want = cuda_align.banded_scores_windows_ref(win, rd, rl, band_radius=B)
     assert torch.equal(got, want)
 
 

@@ -1,15 +1,25 @@
-"""Banded DP over 4-bit packed haplotype text: CUDA kernel + plain version.
+"""Banded DP over haplotype text: the CUDA kernel's three entries + plain
+versions.
 
-The counterpart of vg_tpu/ops/pallas_align.py on the H100. The kernel
-(csrc/banded_dp.cu, CUDA C++ for sm_90a) replaces the TPU kernel
-pallas_align.make_kernel as reached through banded_scores_packed; its
-source note says what bounds it and what the simple design gives up.
+The counterpart of vg_tpu/ops/pallas_align.py on the H100. One kernel
+body (csrc/banded_dp.cu, CUDA C++ for sm_90a) replaces the TPU kernel
+pallas_align.make_kernel as reached through each of its three entries;
+its source note says what bounds it and what the simple design gives up:
 
-`banded_scores_packed` launches the kernel for CUDA tensors and runs the
-plain PyTorch version `banded_scores_packed_ref` for CPU tensors — the
-device of the tensors decides, nothing falls back. The kernel library is
-built with nvcc into vg_tpu_torch/_build/ on first use and bound with
-ctypes (plain C interface: pointers and the stream as c_void_p).
+- `banded_scores_packed` (pallas_align.banded_scores_packed): windows
+  gathered from the 4-bit packed text; plain version
+  `banded_scores_packed_ref`;
+- `banded_scores_bytes` (pallas_align.banded_scores_via_pallas): windows
+  gathered from the byte text; plain version ops/align.banded_scores;
+- `banded_scores_windows` (pallas_align.banded_scores_pallas): pre-gathered
+  windows; plain version `banded_scores_windows_ref` (ops/align.banded_dp
+  on the TPU kernel's padded rows).
+
+Each launches the kernel for CUDA tensors and runs its plain version for
+CPU tensors — the device of the tensors decides, nothing falls back. The
+kernel library is built with nvcc into vg_tpu_torch/_build/ on first use
+and bound with ctypes (plain C interface: pointers and the stream as
+c_void_p).
 """
 from __future__ import annotations
 
@@ -20,11 +30,12 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .align import SENTINEL, _score_windows
+from .align import SENTINEL, _score_windows, banded_dp, banded_scores
 
 _SRC = cuda_build.PKG / "csrc" / "banded_dp.cu"
 RADII = (8, 12, 16)        # band radii the kernel is instantiated for
 OPS_PER_CELL = 14          # int32 operations per band cell (see the .cu)
+LANES = 128                # banded_scores_windows: N is a multiple of this
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -56,10 +67,15 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         lib = cuda_build.build(_SRC, build_info)
-        fn = lib.banded_dp_packed
+        for fn in (lib.banded_dp_packed, lib.banded_dp_bytes):
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                           + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+                           + [ctypes.c_void_p])
+        fn = lib.banded_dp_windows
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_longlong] + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         _lib = lib
         return _lib
@@ -77,6 +93,46 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _launch_text(entry, text, T, reads, reads_rc, rlen, cand_start, cand_lo,
+                 cand_hi, cand_rev, cand_valid, band_radius, match, mismatch,
+                 gap_open, gap_extend, bonus) -> torch.Tensor:
+    """Check the candidate-table inputs and launch one of the text entries
+    (`banded_dp_packed`: int32 words, `banded_dp_bytes`: uint8 codes)."""
+    dev = text.device
+    if band_radius not in RADII:
+        raise ValueError(f"the banded-DP kernel is instantiated for band "
+                         f"radii {RADII}, not {band_radius}")
+    R, RL = reads.shape
+    C = cand_start.shape[1]
+    if rlen.dim() != 1 or rlen.shape[0] < R:
+        raise ValueError(f"rlen must be 1-D with at least {R} entries")
+    rlen = rlen[:R]
+    packed = entry == "banded_dp_packed"
+    _check(text, "text", torch.int32 if packed else torch.uint8, text.shape,
+           dev)
+    if text.dim() != 1 or text.shape[0] * (8 if packed else 1) < T:
+        raise ValueError("text must be 1-D and hold T bases")
+    _check(reads, "reads", torch.uint8, (R, RL), dev)
+    _check(reads_rc, "reads_rc", torch.uint8, (R, RL), dev)
+    _check(rlen, "rlen", torch.int32, (R,), dev)
+    for name, t in (("cand_start", cand_start), ("cand_lo", cand_lo),
+                    ("cand_hi", cand_hi)):
+        _check(t, name, torch.int32, (R, C), dev)
+    _check(cand_rev, "cand_rev", torch.bool, (R, C), dev)
+    _check(cand_valid, "cand_valid", torch.bool, (R, C), dev)
+    out = torch.empty((R, C), dtype=torch.int32, device=dev)
+    index, stream = cuda_build.launch_args(text)
+    err = getattr(library(), entry)(
+        index, text.data_ptr(), int(T), reads.data_ptr(),
+        reads_rc.data_ptr(), rlen.data_ptr(), cand_start.data_ptr(),
+        cand_lo.data_ptr(), cand_hi.data_ptr(), cand_rev.data_ptr(),
+        cand_valid.data_ptr(), out.data_ptr(), R, C, RL, band_radius,
+        match, mismatch, gap_open, gap_extend, bonus, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+    return out
+
+
 def banded_scores_packed(
     text_packed: torch.Tensor,  # (ceil(T/8)+2,) int32, pack_text() output
     T: int,                     # true text length in bases
@@ -89,46 +145,16 @@ def banded_scores_packed(
     but reading the text from its 4-bit packed form. Returns (R, C) int32
     scores, -1 on invalid slots. CUDA tensors launch the kernel (counted in
     `banded_scores_packed.launches`); CPU tensors run the plain version."""
+    args = (reads, reads_rc, rlen, cand_start, cand_lo, cand_hi, cand_rev,
+            cand_valid)
     kw = dict(band_radius=band_radius, match=match, mismatch=mismatch,
               gap_open=gap_open, gap_extend=gap_extend, bonus=bonus)
     dev = text_packed.device
     if dev.type == "cpu":
-        return banded_scores_packed_ref(
-            text_packed, T, reads, reads_rc, rlen, cand_start, cand_lo,
-            cand_hi, cand_rev, cand_valid, **kw)
+        return banded_scores_packed_ref(text_packed, T, *args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"banded_scores_packed: unsupported device {dev}")
-    if band_radius not in RADII:
-        raise ValueError(f"the banded-DP kernel is instantiated for band "
-                         f"radii {RADII}, not {band_radius}")
-    R, RL = reads.shape
-    C = cand_start.shape[1]
-    if rlen.dim() != 1 or rlen.shape[0] < R:
-        raise ValueError(f"rlen must be 1-D with at least {R} entries")
-    rlen = rlen[:R]
-    _check(text_packed, "text_packed", torch.int32, text_packed.shape, dev)
-    if text_packed.dim() != 1 or text_packed.shape[0] * 8 < T:
-        raise ValueError("text_packed must be 1-D and hold T bases")
-    _check(reads, "reads", torch.uint8, (R, RL), dev)
-    _check(reads_rc, "reads_rc", torch.uint8, (R, RL), dev)
-    _check(rlen, "rlen", torch.int32, (R,), dev)
-    for name, t in (("cand_start", cand_start), ("cand_lo", cand_lo),
-                    ("cand_hi", cand_hi)):
-        _check(t, name, torch.int32, (R, C), dev)
-    _check(cand_rev, "cand_rev", torch.bool, (R, C), dev)
-    _check(cand_valid, "cand_valid", torch.bool, (R, C), dev)
-    out = torch.empty((R, C), dtype=torch.int32, device=dev)
-    lib = library()
-    index, stream = cuda_build.launch_args(text_packed)
-    err = lib.banded_dp_packed(
-        index, text_packed.data_ptr(), int(T), reads.data_ptr(),
-        reads_rc.data_ptr(), rlen.data_ptr(), cand_start.data_ptr(),
-        cand_lo.data_ptr(), cand_hi.data_ptr(), cand_rev.data_ptr(),
-        cand_valid.data_ptr(), out.data_ptr(), R, C, RL, band_radius,
-        match, mismatch, gap_open, gap_extend, bonus, stream)
-    if err != 0:
-        raise RuntimeError(f"banded_dp_packed launch failed: CUDA error "
-                           f"{err}")
+    out = _launch_text("banded_dp_packed", text_packed, T, *args, **kw)
     banded_scores_packed.launches += 1
     return out
 
@@ -161,17 +187,124 @@ def banded_scores_packed_ref(
     return torch.where(cand_valid, s, -1).to(torch.int32)
 
 
-def dp_work(reads: torch.Tensor, rlen: torch.Tensor,
-            cand_valid: torch.Tensor, text_words: int,
-            band_radius: int) -> tuple:
+def banded_scores_bytes(
+    text: torch.Tensor,         # (T,) uint8 haplotype text codes
+    reads: torch.Tensor, reads_rc: torch.Tensor, rlen: torch.Tensor,
+    cand_start: torch.Tensor, cand_lo: torch.Tensor, cand_hi: torch.Tensor,
+    cand_rev: torch.Tensor, cand_valid: torch.Tensor,
+    *, band_radius: int = 16, match: int = 1, mismatch: int = 4,
+    gap_open: int = 6, gap_extend: int = 1, bonus: int = 5) -> torch.Tensor:
+    """The DP with a byte-text window gather: the counterpart of
+    vg_tpu.ops.pallas_align.banded_scores_via_pallas, a drop-in for
+    ops/align.banded_scores (its plain version, run for CPU tensors).
+    Returns (R, C) int32 scores, -1 on invalid slots. CUDA tensors launch
+    the kernel, counted in `banded_scores_bytes.launches`."""
+    args = (reads, reads_rc, rlen, cand_start, cand_lo, cand_hi, cand_rev,
+            cand_valid)
+    kw = dict(band_radius=band_radius, match=match, mismatch=mismatch,
+              gap_open=gap_open, gap_extend=gap_extend, bonus=bonus)
+    dev = text.device
+    if dev.type == "cpu":
+        return banded_scores(text, *args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"banded_scores_bytes: unsupported device {dev}")
+    out = _launch_text("banded_dp_bytes", text, text.shape[0], *args, **kw)
+    banded_scores_bytes.launches += 1
+    return out
+
+
+banded_scores_bytes.launches = 0
+
+
+def banded_scores_windows(
+    windows: torch.Tensor,      # (N, TW) uint8, N % 128 == 0
+    reads: torch.Tensor,        # (N, RL) uint8, already oriented
+    rlen: torch.Tensor,         # (N,) int32, 0 = invalid slot
+    *, band_radius: int = 16, match: int = 1, mismatch: int = 4,
+    gap_open: int = 6, gap_extend: int = 1, bonus: int = 5) -> torch.Tensor:
+    """The DP on pre-gathered windows: the counterpart of
+    vg_tpu.ops.pallas_align.banded_scores_pallas, with its contract (N a
+    multiple of 128, (N,) int32 scores floored at 0, no -1: an invalid
+    slot has rlen 0 and scores 0). CUDA tensors launch the kernel, counted
+    in `banded_scores_windows.launches`; CPU tensors run the plain version
+    `banded_scores_windows_ref`."""
+    N, TW = windows.shape
+    RL = reads.shape[1]
+    assert N % LANES == 0, f"N = {N} is not a multiple of {LANES}"
+    kw = dict(band_radius=band_radius, match=match, mismatch=mismatch,
+              gap_open=gap_open, gap_extend=gap_extend, bonus=bonus)
+    dev = windows.device
+    if dev.type == "cpu":
+        return banded_scores_windows_ref(windows, reads, rlen, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"banded_scores_windows: unsupported device {dev}")
+    if band_radius not in RADII:
+        raise ValueError(f"the banded-DP kernel is instantiated for band "
+                         f"radii {RADII}, not {band_radius}")
+    _check(windows, "windows", torch.uint8, (N, TW), dev)
+    _check(reads, "reads", torch.uint8, (N, RL), dev)
+    _check(rlen, "rlen", torch.int32, (N,), dev)
+    out = torch.empty(N, dtype=torch.int32, device=dev)
+    index, stream = cuda_build.launch_args(windows)
+    err = library().banded_dp_windows(
+        index, windows.data_ptr(), reads.data_ptr(), rlen.data_ptr(),
+        out.data_ptr(), N, TW, RL, band_radius, match, mismatch, gap_open,
+        gap_extend, bonus, stream)
+    if err != 0:
+        raise RuntimeError(f"banded_dp_windows launch failed: CUDA error "
+                           f"{err}")
+    banded_scores_windows.launches += 1
+    return out
+
+
+banded_scores_windows.launches = 0
+
+
+def banded_scores_windows_ref(
+    windows: torch.Tensor, reads: torch.Tensor, rlen: torch.Tensor, *,
+    band_radius: int = 16, match: int = 1, mismatch: int = 4,
+    gap_open: int = 6, gap_extend: int = 1, bonus: int = 5) -> torch.Tensor:
+    """Plain version of the windows entry: ops/align.banded_dp on the rows
+    the TPU kernel runs. It pads read rows to RLP = RL rounded up to 8 with
+    code 5 and windows to RLP + 2B columns with the sentinel, so a slot
+    with rlen > RL runs min(rlen, RLP) rows as banded_scores_pallas does
+    (banded_dp alone stops at RL)."""
+    N, TW = windows.shape
+    RL = reads.shape[1]
+    RLP = -(-RL // 8) * 8
+    TWP = max(TW, RLP + 2 * band_radius)
+    rd = torch.full((N, RLP), 5, dtype=torch.uint8, device=reads.device)
+    rd[:, :RL] = reads
+    win = torch.full((N, TWP), SENTINEL, dtype=torch.uint8,
+                     device=windows.device)
+    win[:, :TW] = windows
+    return banded_dp(win, rd, rlen, band_radius=band_radius, match=match,
+                     mismatch=mismatch, gap_open=gap_open,
+                     gap_extend=gap_extend, bonus=bonus)
+
+
+def dp_work(reads: torch.Tensor, rlen: torch.Tensor, cand_valid,
+            text_entries: int, band_radius: int, *,
+            source: str = "packed") -> tuple:
     """(bytes, int32 operations) one call needs on these inputs: every
     input read once and the output written once; OPS_PER_CELL for each
-    band cell of each valid candidate's rows (min(rlen, RL) rows)."""
+    band cell of each slot's rows.
+
+    source "packed" / "bytes": candidate tables (R, C) over a text of
+    `text_entries` int32 words / uint8 codes; each valid slot runs
+    min(rlen, RL) rows. source "windows": `reads` (N, RL) oriented,
+    `text_entries` the windows' N * TW bytes, `cand_valid` None; each slot
+    runs min(rlen, RLP) rows, RLP = RL rounded up to 8."""
     R, RL = reads.shape
-    C = cand_valid.shape[1]
     W = 2 * band_radius + 1
+    if source == "windows":
+        RLP = -(-RL // 8) * 8
+        rows = rlen.to(torch.int64).clamp(0, RLP)
+        nbytes = text_entries + R * RL + 4 * R + 4 * R
+        return nbytes, OPS_PER_CELL * int(rows.sum()) * W
+    C = cand_valid.shape[1]
     rows = rlen[:R].to(torch.int64).clamp(0, RL)
     cells = int((cand_valid.to(torch.int64) * rows[:, None]).sum()) * W
-    nbytes = (4 * text_words + 2 * R * RL + 4 * R
-              + R * C * (3 * 4 + 2) + 4 * R * C)
+    nbytes = ((4 if source == "packed" else 1) * text_entries + 2 * R * RL
+              + 4 * R + R * C * (3 * 4 + 2) + 4 * R * C)
     return nbytes, OPS_PER_CELL * cells

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from ..ops import align as align_ops
+from ..ops import cuda_align
 
 F32 = torch.float32
 NEGF = -1e30               # float32(-1e30) in the reference
@@ -206,8 +207,11 @@ def _pair_core_T(f1T, f2T, vd1T, vd2T, fragT, properT, rl1, rl2, mu, sd,
 
 def _default_score_fn(band_radius, match, mismatch, gap_open, gap_extend,
                       bonus):
+    """The byte-text DP (vg_tpu's default score function): the kernel's
+    byte-text entry on the card, its plain version ops/align.banded_scores
+    for CPU tensors."""
     def score_fn(text, reads, reads_rc, rlen, cand):
-        return align_ops.banded_scores(
+        return cuda_align.banded_scores_bytes(
             text, reads, reads_rc, rlen, *cand[:5],
             band_radius=band_radius, match=match, mismatch=mismatch,
             gap_open=gap_open, gap_extend=gap_extend, bonus=bonus)
