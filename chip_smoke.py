@@ -2,6 +2,7 @@
 """Smoke run of vg_tpu_torch, the PyTorch/CUDA port, on one NVIDIA GPU.
 
     python3 chip_smoke.py [--ref-mbp 1.0] [--seed 42] [--profile]
+                          [--compare-parent DIR]
 
 Builds the port's kernels (vg_tpu_torch/csrc/banded_dp.cu and
 csrc/seed_kernels.cu, nvcc) and the native host library
@@ -32,6 +33,14 @@ It checks the records (count, placement against the simulated truth, the
 card against the CPU, the long-read engines against each other).
 Imports nothing of JAX or vg_tpu.
 
+Kernel times are device times: a spin kernel holds the stream while the
+host enqueues the timed calls (device_ms); the enqueue-inclusive reading
+of back-to-back calls (cuda_ms) is printed beside it. --compare-parent DIR
+loads the vg_tpu_torch package of another checkout (DIR, e.g. a
+`git archive` of the parent commit), builds its seeding kernels, and
+times its cluster_topc and argsort_i32 against this tree's on the main
+path's inputs, in turns, after checking that both give the same outputs.
+
 Output: one line per phase, then a JSON line with the kernels' numbers,
 the card's name and power limit, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -60,6 +69,7 @@ LR_READS, LR_WARM, LR_LEN = 512, 16, 10_000   # bench.py's long-read sidecar
 # INT32 pipe alone gives half; the FMA pipe runs IMAD and its moves)
 INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
+SM_HZ = 1.98e9            # H100 SXM boost clock: torch.cuda._sleep cycles/s
 COMP = np.array([3, 2, 1, 0, 4, 5], np.uint8)
 
 
@@ -223,8 +233,25 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
+    """Launch counts and the card's count of block-path cluster rows to 0."""
+    from vg_tpu_torch.ops import cuda_seed
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    cuda_seed.block_rows_reset()
+
+
+def timing_text(k) -> str:
+    """One kernel's times beside its bound, for the log."""
+    lib = "" if k.get("library_ms") is None else \
+        f", library {k['library_ms']:.4f} ms (runs {k['library_runs_ms']})"
+    return (f"kernel {k['ms']:.4f} ms on the device (runs "
+            f"{k['kernel_runs_ms']}, host ahead {k['host_ahead']}), "
+            f"{k['enqueue_ms']:.4f} ms enqueue-inclusive (runs "
+            f"{k['enqueue_runs_ms']}), plain {k['plain_ms']:.3f} ms, bound "
+            f"{k['bound_ms']:.5f} ms ({k['bound_by']}; {k['ops']:.3e} ops, "
+            f"{k['bytes']} bytes; {100 * k['bound_ms'] / k['ms']:.1f}% of "
+            f"bound speed){lib}")
 
 
 def phase_environment():
@@ -325,8 +352,10 @@ def adversarial_batch(rng, text, R, C=8, RL=160, B=BAND, L=150):
 
 
 def cuda_ms(fn, iters):
-    """Mean milliseconds of fn on the card (CUDA events, after one warm
-    call)."""
+    """Mean milliseconds of fn on the card, enqueue included: CUDA events
+    around `iters` back-to-back calls after one warm call. Where one call
+    takes the host longer to enqueue than the card to run, this is the
+    host's time."""
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -339,6 +368,60 @@ def cuda_ms(fn, iters):
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fn, iters):
+    """Mean device milliseconds of fn, with the host ahead of the card:
+    after a warm call, a spin kernel (torch.cuda._sleep) holds the stream
+    for twice the host's enqueue time of the iterations while the host
+    enqueues the start event, `iters` calls and the end event, so the
+    events see the card's work back to back. Returns (ms, ahead): ahead
+    is False when the start event had already run once the host was done
+    (a spin still too short after two doublings, or a call that waits
+    for the card), and then ms includes the host's gaps as cuda_ms
+    does."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(SM_HZ * (2 * iters * host + 1e-3) * 2**attempt))
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        ahead = not a.query()
+        b.synchronize()
+        if ahead:
+            break
+    return a.elapsed_time(b) / iters, ahead
+
+
+def timed_turns(kern, plain, iters, plain_iters, library=None):
+    """Device times in turns (plain, kernel, kernel, plain; the library
+    call after the first plain run and before the second) and the
+    kernel's enqueue-inclusive time between its two device runs."""
+    p1 = device_ms(plain, plain_iters)
+    l1 = device_ms(library, iters) if library else None
+    k1 = device_ms(kern, iters)
+    e1 = cuda_ms(kern, iters)
+    e2 = cuda_ms(kern, iters)
+    k2 = device_ms(kern, iters)
+    l2 = device_ms(library, iters) if library else None
+    p2 = device_ms(plain, plain_iters)
+    return dict(
+        ms=min(k1[0], k2[0]), enqueue_ms=min(e1, e2),
+        plain_ms=min(p1[0], p2[0]),
+        library_ms=min(l1[0], l2[0]) if library else None,
+        kernel_runs_ms=[k1[0], k2[0]], enqueue_runs_ms=[e1, e2],
+        plain_runs_ms=[p1[0], p2[0]],
+        library_runs_ms=[l1[0], l2[0]] if library else None,
+        host_ahead=all(x[1] for x in (k1, k2) + ((l1, l2) if library
+                                                 else ())))
+
+
 def time_kernel(packed, T, t):
     """Kernel and plain-version milliseconds on one batch (plain, kernel,
     kernel, plain: the card's clock state is shared) and the bound from
@@ -349,20 +432,11 @@ def time_kernel(packed, T, t):
                                                     band_radius=BAND)
     run_p = lambda: cuda_align.banded_scores_packed_ref(packed, T, *t,
                                                         band_radius=BAND)
-    p1 = cuda_ms(run_p, 3)
-    k1 = cuda_ms(run_k, 50)
-    k2 = cuda_ms(run_k, 50)
-    p2 = cuda_ms(run_p, 3)
     nbytes, ops = cuda_align.dp_work(t[0], t[2], t[-1], packed.numel(), BAND)
     R, RL = t[0].shape
-    return dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                bound_ms=max(nbytes / HBM_BYTES_PER_S,
-                             ops / INT32_OPS_PER_S) * 1e3,
-                bound_by=("operations" if ops / INT32_OPS_PER_S
-                          >= nbytes / HBM_BYTES_PER_S else "bytes"),
+    return dict(time_entry(run_k, run_p, nbytes, ops),
                 shape=f"R={R} C={t[3].shape[1]} RL={RL} B={BAND}",
-                valid=int(t[-1].sum()), bytes=nbytes, ops=ops,
-                kernel_runs_ms=[k1, k2], plain_runs_ms=[p1, p2])
+                valid=int(t[-1].sum()))
 
 
 def phase_kernel(text, real_batches):
@@ -442,6 +516,7 @@ def phase_main_path(haps, idx, mem, pairs, truth, bs, n_batches,
     learns)."""
     from vg_tpu_torch.map.giraffe import GiraffeMapper, GiraffeParams
     from vg_tpu_torch.map.paired import PairedGiraffeMapper
+    from vg_tpu_torch.ops import cuda_seed
     from vg_tpu_torch.parallel.pipeline import map_pairs_encoded_mt
 
     mapper = GiraffeMapper(haps, idx, GiraffeParams(
@@ -467,6 +542,7 @@ def phase_main_path(haps, idx, mem, pairs, truth, bs, n_batches,
     if device_seed:
         reset_launches()
     before = kernel_launches()
+    rows0 = cuda_seed.block_rows_read()
     recs = []
     t0 = time.time()
     ticks = [t0]
@@ -476,6 +552,8 @@ def phase_main_path(haps, idx, mem, pairs, truth, bs, n_batches,
         ticks.append(time.time())
     dt = time.time() - t0
     after = kernel_launches()
+    torch.cuda.synchronize()
+    block_rows = cuda_seed.block_rows_read() - rows0
     steady = (len(recs) - 2 * bs) / (ticks[-1] - ticks[1]) \
         if len(ticks) > 2 and ticks[-1] > ticks[1] else len(recs) / dt
     assert len(recs) == 2 * len(stream), (len(recs), len(stream))
@@ -484,7 +562,7 @@ def phase_main_path(haps, idx, mem, pairs, truth, bs, n_batches,
         records=len(recs), seconds=dt, reads_per_s=len(recs) / dt,
         steady_reads_per_s=steady, placed=frac, launches=after,
         stream_launches={k: after[k] - before[k] for k in after},
-        stage_seconds=dict(pm.stage_seconds))
+        block_rows=block_rows, stage_seconds=dict(pm.stage_seconds))
 
 
 def log_path(name, res, card):
@@ -492,7 +570,8 @@ def log_path(name, res, card):
         f"= {res['reads_per_s']:.0f} reads/s (steady "
         f"{res['steady_reads_per_s']:.0f}), {100 * res['placed']:.2f}% "
         f"within 100 bp of truth, launches {json.dumps(res['launches'])} "
-        f"({json.dumps(res['stream_launches'])} while streaming), stage "
+        f"({json.dumps(res['stream_launches'])} while streaming; "
+        f"{res['block_rows']} cluster rows on the block path), stage "
         f"seconds {json.dumps(res['stage_seconds'])} on {card}")
 
 
@@ -641,17 +720,44 @@ def max_err(got, want) -> tuple:
     return bad, err
 
 
+def seed_counts(strandk) -> dict:
+    """Valid seeds per row of a cluster_topc input: mean, p99, max, and
+    the rows over the warp path's limit."""
+    from vg_tpu_torch.ops import cuda_seed
+
+    n = (strandk < 2).sum(dim=1)
+    return dict(rows=int(n.numel()), mean=float(n.double().mean()),
+                p99=float(torch.quantile(n.double(), 0.99)),
+                max=int(n.max()),
+                over_t=int((n > cuda_seed.CLUSTER_WARP_T).sum()))
+
+
 def phase_seed_kernels(mapper, reads):
     """Each seeding kernel against its plain version on the card, exact:
     on the main path's own inputs and on the adversarial cases of
-    vg_tpu_torch.ops.seed_cases. Times and bounds on the main path's
-    inputs (plain, kernel, kernel, plain)."""
+    vg_tpu_torch.ops.seed_cases (among them rows of 1, 31, 32, 33, T - 1,
+    T, T + 1 and 4096 valid seeds, non-quantized scores, argsort sizes
+    around the warp and block widths). cluster_topc's block path must take
+    exactly the rows over T of each input. Device times and bounds on the
+    main path's inputs (plain, kernel, kernel, plain). Returns the
+    numbers and the main path's inputs."""
     from vg_tpu_torch.ops import cuda_seed, seed_cases
 
     dev = mapper.device
     p = mapper.params
     sf, B, C = p.score_fraction, p.band_radius, p.max_candidates
     sc_in, cl_in, key, perm = seed_kernel_inputs(mapper, reads)
+    dist = seed_counts(cl_in[0])
+    before = cuda_seed.block_rows_read()
+    cuda_seed.cluster_topc(*cl_in, band_radius=B, max_candidates=C)
+    torch.cuda.synchronize()
+    dist["block_rows"] = cuda_seed.block_rows_read() - before
+    log(f"cluster_topc main path batch: {dist['rows']} rows, valid seeds a "
+        f"row mean {dist['mean']:.2f}, p99 {dist['p99']:.1f}, max "
+        f"{dist['max']}; {dist['over_t']} rows over T = "
+        f"{cuda_seed.CLUSTER_WARP_T}, {dist['block_rows']} took the block "
+        f"path")
+    assert dist["block_rows"] == dist["over_t"], dist
     rng = np.random.default_rng(5)
     put = lambda arrs: [torch.as_tensor(a, device=dev) for a in arrs]
     run = {
@@ -673,7 +779,13 @@ def phase_seed_kernels(mapper, reads):
         "cluster_topc": [("main path", cl_in)] + [
             (f"adversarial R={R} S={S}",
              put(seed_cases.cluster_case(rng, R, S, B)))
-            for R, S in ((BATCH, 4096), (1024, 1024), (1024, 256))],
+            for R, S in ((BATCH, 4096), (1024, 1024), (1024, 256))] + [
+            (f"seed counts {seed_cases.CLUSTER_COUNTS} S={S}",
+             put(seed_cases.cluster_count_case(rng, S, B, copies=8)))
+            for S in (4096, 1024)] + [
+            (f"non-quantized R=1024 S={S}",
+             put(seed_cases.cluster_float_case(rng, 1024, S, B)))
+            for S in (4096, 1024, 256)],
         "argsort_i32": [("main path key", (key,)),
                         ("main path perm", (perm,))] + [
             (f"adversarial n={n}",
@@ -685,39 +797,93 @@ def phase_seed_kernels(mapper, reads):
         kern, plain = run[name]
         bad_all, err_all = 0, 0.0
         for label, args in items:
+            rows0 = cuda_seed.block_rows_read()
             got = kern(args)
             torch.cuda.synchronize()
             bad, err = max_err(got, plain(args))
+            extra = ""
+            if name == "cluster_topc":
+                took = cuda_seed.block_rows_read() - rows0
+                over = seed_counts(args[0])["over_t"]
+                extra = f"; {took} rows on the block path, {over} over T"
+                assert took == over, (label, took, over)
             log(f"{name} vs plain, {label}: {bad} mismatches, max |err| "
-                f"{err}")
+                f"{err}{extra}")
             bad_all += bad
             err_all = max(err_all, err)
         if bad_all:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {bad_all} elements")
         args = items[0][1]
-        p1 = cuda_ms(lambda: plain(args), 3)
-        k1 = cuda_ms(lambda: kern(args), 20)
-        k2 = cuda_ms(lambda: kern(args), 20)
-        p2 = cuda_ms(lambda: plain(args), 3)
         if name == "softcap_compact":
             nbytes, ops = cuda_seed.softcap_work(*args[0].shape)
         elif name == "cluster_topc":
             nbytes, ops = cuda_seed.cluster_work(args[0], C)
         else:
             nbytes, ops = cuda_seed.argsort_work(args[0].shape[0])
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-        lib = None
-        if name == "argsort_i32":
-            lib = cuda_ms(lambda: torch.argsort(args[0], stable=True), 20)
+        lib = (lambda: torch.argsort(args[0], stable=True)) \
+            if name == "argsort_i32" else None
         out[name] = dict(
-            mismatches=bad_all, max_abs_err=err_all, ms=min(k1, k2),
-            plain_ms=min(p1, p2), bound_ms=max(t_b, t_o) * 1e3,
-            bound_by="operations" if t_o >= t_b else "bytes",
-            library_ms=lib, bytes=nbytes, ops=ops,
-            kernel_runs_ms=[k1, k2], plain_runs_ms=[p1, p2],
+            timed_turns(lambda: kern(args), lambda: plain(args), 20, 3,
+                        library=lib),
+            **bound(nbytes, ops), mismatches=bad_all, max_abs_err=err_all,
             shape="x".join(str(d) for d in args[0].shape))
-    return out
+    out["cluster_topc"]["seed_counts"] = dist
+    return out, (cl_in, key)
+
+
+def load_parent_seed(root):
+    """The ops.cuda_seed module of the vg_tpu_torch package under `root`,
+    imported as the package parent_vg_tpu_torch (it builds its own
+    kernels from its own sources)."""
+    import importlib
+    import importlib.util
+    import pathlib
+
+    pkg = pathlib.Path(root).resolve() / "vg_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_vg_tpu_torch", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_vg_tpu_torch"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_vg_tpu_torch.ops.cuda_seed")
+
+
+def phase_compare_parent(root, inputs, B, C, card):
+    """The parent tree's cluster_topc and argsort_i32 against this tree's
+    on the main path's inputs: the same outputs, then device and enqueue
+    times in turns (parent, this, this, parent)."""
+    from vg_tpu_torch.ops import cuda_seed
+
+    cl_in, key = inputs
+    par = load_parent_seed(root)
+    t0 = time.time()
+    par.library()
+    log(f"parent seed_kernels.cu built in {time.time() - t0:.1f} s from "
+        f"{root}")
+    fns = {"cluster_topc": lambda m: m.cluster_topc(
+               *cl_in, band_radius=B, max_candidates=C),
+           "argsort_i32": lambda m: (m.argsort_i32(key),)}
+    res = {}
+    for name, fn in fns.items():
+        bad, _ = max_err(fn(par), fn(cuda_seed))
+        assert bad == 0, f"{name}: parent and this tree differ on {bad}"
+        runs = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            m = par if who == "parent" else cuda_seed
+            dev_ms, ahead = device_ms(lambda: fn(m), 20)
+            runs[who].append(dict(ms=dev_ms, ahead=ahead,
+                                  enqueue_ms=cuda_ms(lambda: fn(m), 20)))
+        res[name] = runs
+        log(f"{name} on the main path's inputs, parent vs this tree (same "
+            f"outputs): device ms parent "
+            f"{[r['ms'] for r in runs['parent']]}, this "
+            f"{[r['ms'] for r in runs['this']]}; enqueue ms parent "
+            f"{[r['enqueue_ms'] for r in runs['parent']]}, this "
+            f"{[r['enqueue_ms'] for r in runs['this']]} on {card}")
+    print(json.dumps({"compare_parent": res}), flush=True)
+    return res
 
 
 def profiled(fn):
@@ -742,7 +908,8 @@ def profiled(fn):
 
 def phase_profile(pm, pairs, bs, n_batches, label, top=12):
     """One more pass of a paired stream under torch.profiler: device time
-    by kernel, and the device's busy share of the wall time (kernels and
+    by kernel (the `top` largest, then each hand-written kernel of the
+    port), and the device's busy share of the wall time (kernels and
     copies on the card, summed; the pipeline uses one stream)."""
     from vg_tpu_torch.parallel.pipeline import map_pairs_encoded_mt
 
@@ -761,6 +928,11 @@ def phase_profile(pm, pairs, bs, n_batches, label, top=12):
         f"{100 - 100 * busy / (1e3 * wall):.2f}%), {len(by_name)} kernels")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {ms:9.3f} ms  {calls[name]:5d}x  {name[:100]}")
+    for name, ms in sorted(by_name.items()):    # the port's own kernels
+        if "(anonymous namespace)::" in name and "at::native" not in name:
+            short = name.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            log(f"  hand-written: {ms:9.3f} ms  {calls[name]:5d}x  {short}")
     sorts = {n: ms for n, ms in by_name.items() if "sort" in n.lower()}
     log(f"  device sorts: {len(sorts)} kernels, "
         f"{sum(sorts.values()):.3f} ms ({', '.join(sorted(sorts))[:300]})")
@@ -788,19 +960,19 @@ def gather_windows(text_t, t, B):
     return win, rd, rl
 
 
-def time_entry(kern, plain, nbytes, ops):
-    """Kernel and plain-version milliseconds (plain, kernel, kernel, plain)
-    and the bound of the work."""
-    p1 = cuda_ms(plain, 3)
-    k1 = cuda_ms(kern, 50)
-    k2 = cuda_ms(kern, 50)
-    p2 = cuda_ms(plain, 3)
+def bound(nbytes, ops) -> dict:
+    """The least time the card could take: bytes over the HBM rate or
+    int32 operations over the issue rate, whichever is longer."""
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
-    return dict(ms=min(k1, k2), plain_ms=min(p1, p2),
-                bound_ms=max(t_b, t_o) * 1e3,
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
                 bound_by="operations" if t_o >= t_b else "bytes",
-                bytes=nbytes, ops=ops, kernel_runs_ms=[k1, k2],
-                plain_runs_ms=[p1, p2])
+                bytes=nbytes, ops=ops)
+
+
+def time_entry(kern, plain, nbytes, ops):
+    """Kernel and plain-version device milliseconds in turns, the
+    kernel's enqueue-inclusive time, and the bound of the work."""
+    return dict(timed_turns(kern, plain, 50, 3), **bound(nbytes, ops))
 
 
 def phase_dp_entries(text, real_batches):
@@ -1096,6 +1268,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--profile", action="store_true",
                     help="trace one more pass of each paired stream")
+    ap.add_argument("--compare-parent", metavar="DIR",
+                    help="time another checkout's seeding kernels against "
+                         "this tree's on the main path's inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke run "
@@ -1125,28 +1300,24 @@ def main(argv=None) -> int:
     kern = phase_kernel(haps.text, real)
     for name, k in kern["timed"].items():
         log(f"banded_dp at {k['shape']}, {name} ({k['valid']} valid "
-            f"slots): kernel {k['ms']:.4f} ms (runs {k['kernel_runs_ms']}), "
-            f"plain {k['plain_ms']:.2f} ms, bound {k['bound_ms']:.4f} ms "
-            f"({k['ops']:.3e} int32 ops, {k['bytes']} bytes) on {card}")
-    seedk = phase_seed_kernels(probe, [p[0] for p in pairs[bs : 2 * bs]])
-    del probe
+            f"slots): {timing_text(k)} on {card}")
+    seedk, seed_inputs = phase_seed_kernels(
+        probe, [p[0] for p in pairs[bs : 2 * bs]])
     for name, k in seedk.items():
-        log(f"{name} at {k['shape']}, main path batch 0: kernel "
-            f"{k['ms']:.4f} ms (runs {k['kernel_runs_ms']}), plain "
-            f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.5f} ms "
-            f"({k['bound_by']}; {k['ops']:.3e} ops, {k['bytes']} bytes), "
-            f"library {k['library_ms']} ms on {card}")
+        log(f"{name} at {k['shape']}, main path batch 0: {timing_text(k)} "
+            f"on {card}")
+    if args.compare_parent:
+        phase_compare_parent(args.compare_parent, seed_inputs,
+                             probe.params.band_radius,
+                             probe.params.max_candidates, card)
+    del probe, seed_inputs
     main_k = kern["timed"]["main path batch 0"]
     entries = phase_dp_entries(haps.text, real)
     step_launches = phase_byte_step(haps, mates)
     entries["banded_dp_bytes"]["check_launches"] += step_launches
     for name, k in entries.items():
-        log(f"{name} at {k['shape']}, main path batch 0: kernel "
-            f"{k['ms']:.4f} ms (runs {k['kernel_runs_ms']}), plain "
-            f"{k['plain_ms']:.2f} ms, bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_by']}; {k['ops']:.3e} int32 ops, {k['bytes']} "
-            f"bytes), {k['check_launches']} launches in its checks on "
-            f"{card}")
+        log(f"{name} at {k['shape']}, main path batch 0: {timing_text(k)}, "
+            f"{k['check_launches']} launches in its checks on {card}")
 
     # host-seeded main path, then single-end and the card-vs-CPU step
     pm, host_recs, res = phase_main_path(haps, idx, mem, pairs, truth, bs,
@@ -1163,6 +1334,9 @@ def main(argv=None) -> int:
     spm, seeded_recs, sres = phase_main_path(
         haps, idx, mem, pairs, truth, bs, N_BATCHES, device_seed=True)
     log_path("device-seeded path", sres, card)
+    log(f"cluster_topc block path on the seeded stream: "
+        f"{sres['block_rows']} rows over "
+        f"{sres['stream_launches']['cluster_topc']} calls")
     for name in SEEDED_PATH_KERNELS:
         n = sres["stream_launches"][name]
         assert n >= 2 * N_BATCHES, f"{name} launched {n} times while the " \
@@ -1201,9 +1375,9 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n,
             "mismatches": k["mismatches"], "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"]})
+            "ms": k["ms"], "enqueue_ms": k["enqueue_ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

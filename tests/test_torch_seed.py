@@ -2,9 +2,10 @@
 the plain versions of the three seeding kernels (vg_tpu_torch.ops.cuda_seed,
 which CPU tensors run) against vg_tpu.ops.pallas_seed's Pallas kernels in
 interpret mode, and vg_tpu_torch.ops.devseed against vg_tpu.ops.devseed.
-The same numpy-seeded inputs go to both. Tolerance: exact everywhere (the
+The same numpy-seeded inputs go to both. Tolerance: exact everywhere. The
 scores are multiples of 1/256, as the quantized score table makes them on
-the path, so every float32 sum is exact in any order)."""
+the path, except in seed_cases.cluster_float_case, where exactness rests on
+the plain version adding the scores in vg_tpu's order."""
 import numpy as np
 import pytest
 import torch
@@ -13,7 +14,7 @@ import jax.numpy as jnp
 from vg_tpu.index.minimizer import minimizer_score_table
 from vg_tpu.ops import devseed as jax_devseed
 from vg_tpu.ops import pallas_seed
-from vg_tpu_torch.ops import cuda_seed
+from vg_tpu_torch.ops import cuda_seed, seed_cases
 from vg_tpu_torch.ops import devseed as t_devseed
 
 I32MAX = 2**31 - 1
@@ -102,6 +103,36 @@ def test_cluster_topc_empty_and_single_rows():
     ok[2, :3] = [5, 9, 7]
     score[2, :3] = [1.0, 1.0, 3.0]
     assert_cluster_equal((strandk, diagk, ok, score), 16, 4)
+
+
+def test_cluster_topc_equals_vg_tpu_at_seed_counts():
+    """Rows of exactly 1, 31, 32, 33, T - 1, T and T + 1 valid seeds (T the
+    kernel's warp-path limit) and a full row of S = 1024."""
+    args = seed_cases.cluster_count_case(
+        np.random.default_rng(6), 1024,
+        counts=seed_cases.CLUSTER_COUNTS[:-1] + (1024,), copies=1)
+    T = cuda_seed.CLUSTER_WARP_T
+    np.testing.assert_array_equal(
+        (args[0] < 2).sum(1), [1, 31, 32, 33, T - 1, T, T + 1, 1024])
+    assert_cluster_equal(args, 16, 8)
+
+
+@pytest.mark.parametrize("S", [256, 1024])
+def test_cluster_topc_equals_vg_tpu_on_float_scores(S):
+    """Arbitrary float32 scores: pairs of clusters with the same scores in
+    another order, whose totals differ or tie by rounding alone."""
+    args = seed_cases.cluster_float_case(np.random.default_rng(S + 7), 16, S)
+    assert (args[3] * 256 != np.round(args[3] * 256)).any()
+    assert_cluster_equal(args, 16, 8)
+
+
+@pytest.mark.parametrize("n", [257, 2049, 8192])
+def test_argsort_plain_is_stable_at_kernel_widths(n):
+    keys = seed_cases.argsort_case(np.random.default_rng(n), n)
+    got = cuda_seed.argsort_i32_ref(t(keys))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.argsort(keys, kind="stable"))
 
 
 def test_argsort_equals_vg_tpu_on_distinct_keys():

@@ -6,8 +6,7 @@ card's stack:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_seed_kernel.py
 
 Here, without a card, the `gpu` tests skip and the CPU tests run. Inputs
-come from vg_tpu_torch.ops.seed_cases (quantized scores): every comparison
-is exact."""
+come from vg_tpu_torch.ops.seed_cases: every comparison is exact."""
 import numpy as np
 import pytest
 import torch
@@ -34,6 +33,7 @@ def tensors(arrays, device="cpu"):
 
 def test_cpu_tensors_launch_nothing():
     rng = np.random.default_rng(0)
+    counters = dict(cuda_seed._block_rows)
     before = (cuda_seed.softcap_compact.launches,
               cuda_seed.cluster_topc.launches, cuda_seed.argsort_i32.launches)
     out = cuda_seed.softcap_compact(
@@ -49,6 +49,28 @@ def test_cpu_tensors_launch_nothing():
     assert (cuda_seed.softcap_compact.launches,
             cuda_seed.cluster_topc.launches,
             cuda_seed.argsort_i32.launches) == before
+    assert cuda_seed._block_rows == counters   # no card counter was made
+
+
+@pytest.mark.parametrize("S", [256, 1024, 4096])
+def test_count_case_holds_the_counts_up_to_s(S):
+    args = seed_cases.cluster_count_case(np.random.default_rng(S), S,
+                                         copies=3)
+    want = [k for k in seed_cases.CLUSTER_COUNTS if k <= S]
+    np.testing.assert_array_equal((args[0] < 2).sum(1), np.repeat(want, 3))
+    assert (args[1][args[0] == 2] == cuda_seed.I32MAX).all()
+
+
+def test_float_case_crosses_the_warp_limit():
+    """Every fourth row of the non-quantized case holds more than T valid
+    seeds where S allows, the others fewer; its scores are not multiples
+    of 1/256."""
+    strandk, _, _, score = seed_cases.cluster_float_case(
+        np.random.default_rng(9), 16, 1024)
+    n = (strandk < 2).sum(1)
+    over = n > cuda_seed.CLUSTER_WARP_T
+    np.testing.assert_array_equal(over, np.arange(16) % 4 == 3)
+    assert (score * 256 != np.round(score * 256)).any()
 
 
 def test_plain_softcap_takes_taken_first_in_column_order():
@@ -90,20 +112,71 @@ def test_softcap_kernel_equals_plain_version_on_card(cuda_device):
         assert g.dtype == w.dtype and torch.equal(g, w)
 
 
+CLUSTER_CASES = {
+    "adversarial": lambda rng, S: seed_cases.cluster_case(rng, 96, S),
+    "seed counts": lambda rng, S: seed_cases.cluster_count_case(rng, S),
+    "non-quantized": lambda rng, S: seed_cases.cluster_float_case(rng, 64,
+                                                                  S),
+}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [256, 1024, 4096])
-def test_cluster_kernel_equals_plain_version_on_card(cuda_device, S):
-    args = tensors(seed_cases.cluster_case(np.random.default_rng(S), 96, S),
+@pytest.mark.parametrize("kind", list(CLUSTER_CASES))
+def test_cluster_kernel_equals_plain_version_on_card(cuda_device, kind, S):
+    """Exact on every row, and the block path takes exactly the rows of
+    more than T valid seeds."""
+    args = tensors(CLUSTER_CASES[kind](np.random.default_rng(S), S),
                    cuda_device)
     before = cuda_seed.cluster_topc.launches
+    rows0 = cuda_seed.block_rows_read()
     got = cuda_seed.cluster_topc(*args, band_radius=16, max_candidates=8)
     torch.cuda.synchronize()
     assert cuda_seed.cluster_topc.launches == before + 1
+    over = int(((args[0] < 2).sum(1) > cuda_seed.CLUSTER_WARP_T).sum())
+    assert cuda_seed.block_rows_read() - rows0 == over
     want = cuda_seed.cluster_topc_ref(*args, band_radius=16,
                                       max_candidates=8)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     assert bool(want[2].any())
+
+
+@pytest.mark.gpu
+def test_block_rows_counts_only_rows_over_t(cuda_device):
+    """Rows of T - 1 and T valid seeds stay on the warp path; each row of
+    T + 1 or more takes the block path, once per call."""
+    T = cuda_seed.CLUSTER_WARP_T
+    args = tensors(seed_cases.cluster_count_case(
+        np.random.default_rng(11), 4096, counts=(T - 1, T, T + 1, 4096),
+        copies=5), cuda_device)
+    cuda_seed.block_rows_reset()
+    for calls in (1, 2):
+        cuda_seed.cluster_topc(*args, band_radius=16, max_candidates=8)
+        torch.cuda.synchronize()
+        assert cuda_seed.block_rows_read() == 10 * calls
+        assert cuda_seed.cluster_topc.block_rows == 10 * calls
+    cuda_seed.block_rows_reset()
+    assert cuda_seed.block_rows_read() == 0
+
+
+@pytest.mark.gpu
+def test_shared_memory_attributes_are_set_once(cuda_device):
+    rng = np.random.default_rng(12)
+    cl = tensors(seed_cases.cluster_case(rng, 16, 4096), cuda_device)
+    keys = torch.from_numpy(seed_cases.argsort_case(rng, 9000)).to(
+        cuda_device)
+    cuda_seed.cluster_topc(*cl, band_radius=16, max_candidates=8)
+    cuda_seed.argsort_i32(keys)
+    torch.cuda.synchronize()
+    sets = cuda_seed.attribute_sets()
+    assert sets > 0
+    for _ in range(3):
+        cuda_seed.cluster_topc(*cl, band_radius=16, max_candidates=8)
+        cuda_seed.argsort_i32(keys)
+        cuda_seed.argsort_i32(keys[:100])
+    torch.cuda.synchronize()
+    assert cuda_seed.attribute_sets() == sets
 
 
 @pytest.mark.gpu

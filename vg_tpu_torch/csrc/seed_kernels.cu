@@ -2,15 +2,15 @@
 // and a stable argsort. Bound with ctypes through ops/cuda_seed.py.
 //
 // Replaces the three Pallas TPU kernels of vg_tpu/ops/pallas_seed.py:
-//   softcap_kernel  <- _softcap_kernel (:195), reached via softcap_compact
-//                      (:234, pallas_call :261)
-//   cluster_kernel  <- _cluster_kernel (:275), reached via cluster_topc
-//                      (:357, pallas_call :384)
-//   argsort_kernel  <- _argsort_kernel (:398), reached via argsort_i32
-//                      (:408, pallas_call :424)
+//   softcap_kernel          <- _softcap_kernel (:195), reached via
+//                              softcap_compact (:234, pallas_call :261)
+//   cluster_warp_kernel +   <- _cluster_kernel (:275), reached via
+//   cluster_block_kernel       cluster_topc (:357, pallas_call :384)
+//   argsort_kernel          <- _argsort_kernel (:398), reached via
+//                              argsort_i32 (:408, pallas_call :424)
 // The TPU kernels sort whole padded rows with (8, 128)-tiled bitonic
-// networks because Mosaic needs static shapes. Here each row is one
-// thread block that works in shared memory on what the row holds:
+// networks because Mosaic needs static shapes. Here each row works on what
+// it holds:
 //
 // softcap_kernel: one block of mpad threads per read, one thread per
 //   minimizer column. A thread finds its column's place in the order
@@ -25,74 +25,127 @@
 //   rest, each in column order) is an integer scan over the take flags.
 //   The total is a tree sum; on the path the scores are multiples of
 //   1/256 from the quantized score table, so every sum is exact in any
-//   order. Bound: bytes (six (R, mpad) outputs are 6x the inputs' words).
+//   order. Bound: bytes (six (R, mpad) outputs are 6x the inputs' words);
+//   the quadratic ranking keeps it at a tenth of that bound.
 //
-// cluster_kernel: one block of 512 threads per read. The valid seeds
-//   (strand 0/1; invalid slots carry strand 2) are compacted in slot
-//   order into shared memory (block ballots), so the two sorts touch only
-//   the next power of two above the row's seed count, not the S = 4096
-//   slots the TPU sorts. Each sort is a bitonic sort of one 64-bit key:
-//   (strand, diagonal ^ 2^31, slot rank) for sort 1, (cluster id,
-//   offset ^ 2^31, sort-1 position) for sort 2 — the reference's
-//   lexicographic keys, packed. Cluster breaks (strand change or a
-//   diagonal gap > 2B, with int32 wraparound as in vg_tpu), cluster ids
-//   (integer scan), middle elements, distinct-offset score totals
+// cluster top-C: one wrapper call is two launches on one stream.
+//   The row body (cluster_row) is run by a thread group, a whole block or
+//   one warp, on a row's valid seeds (strand 0/1; invalid slots carry
+//   strand 2) compacted in slot order into shared memory, so the two
+//   sorts touch only the next power of two above the row's seed count,
+//   not the S = 4096 slots the TPU sorts. Each sort is a bitonic sort of
+//   one 64-bit key: (strand, diagonal ^ 2^31, slot rank) for sort 1,
+//   (cluster id, offset ^ 2^31, sort-1 position) for sort 2 - the
+//   reference's lexicographic keys, packed. Cluster breaks (strand change
+//   or a diagonal gap > 2B, with int32 wraparound as in vg_tpu), cluster
+//   ids (integer scan), middle elements, distinct-offset score totals
 //   (Hillis-Steele float scan, then last - (first - contrib[first]) as
-//   the reference's segmented broadcasts compute it) and the top-C
-//   rounds (block argmax: largest total, then lowest cluster id) follow.
-//   Diagonal and offset of invalid slots are never read. Bound: bytes
-//   (the strand of every slot, and diagonal, offset and score of each
-//   valid seed), about a quarter of the dense input on the path.
+//   the reference's segmented broadcasts compute it) and the top-C rounds
+//   (argmax: largest total, then lowest cluster id) follow. The float
+//   tree depends on the row's seed count only, never on the group, so
+//   both paths add the same terms in the same order. Diagonal and offset
+//   of invalid slots are never read. Bound: bytes (the strand of every
+//   slot, and diagonal, offset and score of each valid seed).
 //
-// argsort_kernel: one block of 1024 threads sorts up to 16384 (key,
-//   index) pairs as 64-bit words (key ^ 2^31, index) in 128 KB of dynamic
-//   shared memory: the stable ascending permutation, ties by index. The
-//   TPU kernel's network sorts the key alone, so ties among I32MAX keys
-//   let its padding slots (index >= n) into the result; packing the index
-//   into the key makes every key unique and the result the documented
-//   stable one. Bound: bytes, but at n = 6144 the work is a few
-//   microseconds of syncs: the kernel is latency-bound (log2(n)^2 / 2
-//   block barriers).
+//   cluster_warp_kernel: a warp per row, 8 rows a 256-thread block. The
+//     warp streams the row's strands with 16-byte loads (4 slots a lane,
+//     4 steps of 512 B in flight), compacts the valid slots with three
+//     ballots of each lane's count, and gathers diagonal, offset and
+//     score of those slots only. A row of at most kWarpT = T = 128 valid
+//     seeds runs the row body in the warp's private slice of shared
+//     memory (27 B a seed: 3,456 B a warp, 27,648 B a block) with
+//     __syncwarp between steps: no block barrier. T from the data: on
+//     the main path's batch a row holds 56.05 valid seeds on average,
+//     p99 92, max 108 (chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+//     700 W), and 128 is the power of two above the largest row. ptxas:
+//     40 registers under __launch_bounds__(256, 6), no spills, so six
+//     blocks (48 rows) fit an SM in registers and shared memory, and a
+//     batch of 6,144 rows runs in one wave on 132 SMs. A row with more
+//     seeds stops streaming at the step that passes T, appends its index
+//     to a device list (atomicAdd on a count the entry zeroes) and leaves.
+//   cluster_block_kernel: a persistent grid (two 512-thread blocks an SM,
+//     27 S + 256 B of shared memory: 110,848 B at S = 4096; ptxas: 64
+//     registers, 48 B spilled) walks that list with the block-per-row
+//     body: compaction in rounds of block ballots, then cluster_row on
+//     the whole block. The host never reads the count; an empty list
+//     costs one launch whose blocks exit.
 //
-// What the simple design gives up: one block per row with all of a row's
-// state in shared memory (108 KB for cluster at S = 4096, two blocks an
-// SM); quadratic ranking in softcap; full block barriers between bitonic
-// stages even when the row holds a handful of seeds; one block for the
-// argsort (one SM busy).
+// argsort_kernel: one block sorts up to 16384 (key, index) pairs - the
+//   stable ascending permutation, ties by index - as an LSD radix sort of
+//   the biased key (key ^ 2^31) in four 8-bit passes. Each warp holds
+//   32 E consecutive positions in registers (E = 8 up to 8192 keys, 16
+//   above; position w 32 E + e 32 + lane), ranks them digit by digit in
+//   position order (the lanes of a digit from eight ballots, a per-warp
+//   histogram in shared memory), the (digit, warp) counts are scanned
+//   once, and the words move through shared memory to their next
+//   positions; the last pass writes the indices. ptxas: 64 registers, no
+//   spills at E = 8; E = 16 spills 180 B (n > 8192 only). Chosen over a
+//   register-resident bitonic network: at n = 6144 (8192 padded) the
+//   network makes 4096 x 91 = 372,736 compare-exchanges of 64-bit words,
+//   about 3 M instructions on the one SM, against some 30 instructions a
+//   word a pass here (0.7 M), and every step of a radix pass is stable by
+//   construction, so stability needs no index in the comparison. Five
+//   block barriers a pass, four in the last: 19 in all (a bitonic sort
+//   of 8192 words in shared memory has 91). Padding words
+//   (biased key 2^32 - 1, positions >= n) tie only with I32MAX keys and
+//   follow them, so they never reach the output. Bound: bytes, far
+//   below a launch's latency at the path's n: the time is the chain of
+//   dependent steps (ballots, counter, barrier) a pass walks.
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kClusterThreads = 512;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kClusterThreads = 512;   // block path: threads a row
 constexpr int kClusterMaxS = 4096;
-constexpr int kClusterIPT = kClusterMaxS / kClusterThreads;  // per thread
-constexpr int kArgsortThreads = 1024;
+constexpr int kClusterIPT = kClusterMaxS / kClusterThreads;
+constexpr int kWarpT = 128;            // warp path: most valid seeds a row
+constexpr int kWarpIPT = kWarpT / 32;
+constexpr int kWarpRows = 8;           // warp path: rows (warps) a block
+constexpr int kStreamSteps = 4;        // 128-slot steps a warp has in flight
 constexpr int kArgsortMaxN = 16384;
+constexpr int kMaxDevices = 64;
 
-// --------------------------------------------------------- block helpers
+// ---------------------------------------------------------- thread groups
+
+// The group that runs a row body: a whole block, or one warp on its own
+// rows with its own slice of shared memory.
+struct BlockGroup {
+  __device__ int rank() const { return threadIdx.x; }
+  __device__ int size() const { return blockDim.x; }
+  __device__ void sync() const { __syncthreads(); }
+};
+
+struct WarpGroup {
+  __device__ int rank() const { return threadIdx.x & 31; }
+  __device__ int size() const { return 32; }
+  __device__ void sync() const { __syncwarp(); }
+};
 
 // In-place inclusive Hillis-Steele scan of a[0, n) in shared memory with
 // the addition tree of vg_tpu's _prefix_sum: step d adds a[p - d] to a[p]
-// for p >= d and 0 to a[p] below. Thread t owns positions t + q * blockDim
+// for p >= d and 0 to a[p] below. Rank t owns positions t + q * size
 // (q < IPT) and holds them in registers between a step's reads and writes.
-template <typename T, int IPT>
-__device__ void hs_scan(T* a, int n) {
+template <typename T, int IPT, typename G>
+__device__ void hs_scan(const G& g, T* a, int n) {
   for (int d = 1; d < n; d <<= 1) {
     T v[IPT];
 #pragma unroll
     for (int q = 0; q < IPT; ++q) {
-      const int p = threadIdx.x + q * blockDim.x;
+      const int p = g.rank() + q * g.size();
       if (p < n) v[q] = a[p] + (p >= d ? a[p - d] : T(0));
     }
-    __syncthreads();
+    g.sync();
 #pragma unroll
     for (int q = 0; q < IPT; ++q) {
-      const int p = threadIdx.x + q * blockDim.x;
+      const int p = g.rank() + q * g.size();
       if (p < n) a[p] = v[q];
     }
-    __syncthreads();
+    g.sync();
   }
 }
 
@@ -101,7 +154,7 @@ __device__ void hs_scan(T* a, int n) {
 __device__ int block_rank(bool flag, int* warp_tot, int* total) {
   const unsigned lane = threadIdx.x & 31u, warp = threadIdx.x >> 5;
   const unsigned nwarps = blockDim.x >> 5;
-  const unsigned ball = __ballot_sync(0xffffffffu, flag);
+  const unsigned ball = __ballot_sync(kFull, flag);
   if (lane == 0) warp_tot[warp] = __popc(ball);
   __syncthreads();
   int before = 0, all = 0;
@@ -117,10 +170,11 @@ __device__ int block_rank(bool flag, int* warp_tot, int* total) {
 
 // Ascending bitonic sort of n (a power of two) 64-bit keys in shared
 // memory. The caller synchronises before; the sort ends synchronised.
-__device__ void bitonic_sort(uint64_t* key, int n) {
+template <typename G>
+__device__ void bitonic_sort(const G& g, uint64_t* key, int n) {
   for (int k = 2; k <= n; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
+      for (int i = g.rank(); i < (n >> 1); i += g.size()) {
         const int lo = ((i & ~(j - 1)) << 1) | (i & (j - 1));
         const int hi = lo + j;
         const uint64_t a = key[lo], b = key[hi];
@@ -129,7 +183,40 @@ __device__ void bitonic_sort(uint64_t* key, int n) {
           key[hi] = a;
         }
       }
-      __syncthreads();
+      g.sync();
+    }
+  }
+}
+
+// Largest value, then lowest index, over the group; the result on rank 0.
+__device__ void group_argmax(const WarpGroup&, float& bv, int& bi, int*) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_down_sync(kFull, bv, off);
+    const int oi = __shfl_down_sync(kFull, bi, off);
+    if (ov > bv || (ov == bv && oi < bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+}
+
+__device__ void group_argmax(const BlockGroup& g, float& bv, int& bi,
+                             int* scratch) {
+  group_argmax(WarpGroup(), bv, bi, scratch);
+  float* red_v = reinterpret_cast<float*>(scratch);
+  int* red_i = scratch + 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red_v[warp] = bv;
+    red_i[warp] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < (g.size() >> 5); ++w) {
+      if (red_v[w] > bv || (red_v[w] == bv && red_i[w] < bi)) {
+        bv = red_v[w];
+        bi = red_i[w];
+      }
     }
   }
 }
@@ -158,6 +245,7 @@ __global__ void softcap_kernel(const float* __restrict__ ms,
                                float* __restrict__ ms_o,
                                int32_t* __restrict__ take_o) {
   extern __shared__ float sm[];
+  const BlockGroup g{};
   const int mpad = blockDim.x;
   float* s_ms = sm;              // scores by column
   float* s_c = sm + mpad;        // cheap scores, in sorted order
@@ -192,15 +280,15 @@ __global__ void softcap_kernel(const float* __restrict__ ms,
     if (c < s) s_sum[c] = __fadd_rn(s_sum[c], s_sum[c + s]);
   }
   __syncthreads();
-  hs_scan<float, 1>(s_c, mpad);
-  hs_scan<float, 1>(s_e, mpad);
+  hs_scan<float, 1>(g, s_c, mpad);
+  hs_scan<float, 1>(g, s_e, mpad);
   const float budget = __fmul_rn(score_fraction, s_sum[0]);
   const float csum = __fsub_rn(s_c[rank], cv);   // taken-score totals
   const float esum = __fsub_rn(s_e[rank], ev);   // before this item
   const bool take = kp && (ch || __fadd_rn(csum, esum) < budget);
   s_t[c] = take ? 1 : 0;
   __syncthreads();
-  hs_scan<int, 1>(s_t, mpad);
+  hs_scan<int, 1>(g, s_t, mpad);
   const int before = s_t[c] - (take ? 1 : 0);    // taken columns < c
   const int ntake = s_t[mpad - 1];
   const int slot = take ? before : ntake + (c - before);
@@ -215,77 +303,58 @@ __global__ void softcap_kernel(const float* __restrict__ ms,
 
 // -------------------------------------------------------- cluster top-C
 
+// Shared-memory arrays of a row of up to `cap` seeds, 27 B a seed, and
+// (block path only) 256 B of scratch after them.
+__host__ __device__ constexpr long long cluster_arrays_bytes(int cap) {
+  return (27ll * cap + 15) & ~15ll;
+}
+
 struct ClusterSmem {
-  uint64_t* key;      // [S] sort keys; later the cluster totals (float)
-  int32_t* o_c;       // [S] offsets by slot rank; later the score scan
-  float* sc_c;        // [S] scores by slot rank
-  int32_t* cl_diag;   // [S] cid scan, then each cluster's diagonal
-  int* scratch;       // [64] block_rank / argmax scratch
-  uint16_t* jarr;     // [S] sort-1 position -> slot rank
-  uint16_t* cid;      // [S] sort-1 position -> cluster id
-  uint16_t* cl_start; // [S] cluster id -> first sort-1 position
-  uint8_t* cl_strand; // [S] cluster id -> strand
+  uint64_t* key;      // [cap] sort keys; later the cluster totals (float)
+  int32_t* o_c;       // [cap] offsets by slot rank; later the score scan
+  float* sc_c;        // [cap] scores by slot rank
+  int32_t* cl_diag;   // [cap] valid slots (warp path), cid scan, then
+                      //       each cluster's diagonal
+  uint16_t* jarr;     // [cap] sort-1 position -> slot rank
+  uint16_t* cid;      // [cap] sort-1 position -> cluster id
+  uint16_t* cl_start; // [cap] cluster id -> first sort-1 position
+  uint8_t* cl_strand; // [cap] cluster id -> strand
+  int* scratch;       // [64] block_rank / argmax scratch (block path)
 };
 
-__device__ ClusterSmem cluster_smem(unsigned char* base, int S) {
+__device__ ClusterSmem cluster_smem(unsigned char* base, int cap) {
   ClusterSmem s;
   s.key = reinterpret_cast<uint64_t*>(base);
-  s.o_c = reinterpret_cast<int32_t*>(base + 8ll * S);
-  s.sc_c = reinterpret_cast<float*>(base + 12ll * S);
-  s.cl_diag = reinterpret_cast<int32_t*>(base + 16ll * S);
-  s.scratch = reinterpret_cast<int*>(base + 20ll * S);
-  s.jarr = reinterpret_cast<uint16_t*>(base + 20ll * S + 256);
-  s.cid = s.jarr + S;
-  s.cl_start = s.cid + S;
-  s.cl_strand = reinterpret_cast<uint8_t*>(s.cl_start + S);
+  s.o_c = reinterpret_cast<int32_t*>(base + 8ll * cap);
+  s.sc_c = reinterpret_cast<float*>(base + 12ll * cap);
+  s.cl_diag = reinterpret_cast<int32_t*>(base + 16ll * cap);
+  s.jarr = reinterpret_cast<uint16_t*>(base + 20ll * cap);
+  s.cid = s.jarr + cap;
+  s.cl_start = s.cid + cap;
+  s.cl_strand = reinterpret_cast<uint8_t*>(s.cl_start + cap);
+  s.scratch = reinterpret_cast<int*>(base + cluster_arrays_bytes(cap));
   return s;
 }
 
-__global__ void __launch_bounds__(kClusterThreads)
-cluster_kernel(const int32_t* __restrict__ strandk,
-               const int32_t* __restrict__ diagk,
-               const int32_t* __restrict__ ok,
-               const float* __restrict__ score, int S, int C, int gap,
-               int32_t* __restrict__ cdiag, int32_t* __restrict__ crev,
-               uint8_t* __restrict__ cvalid) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ClusterSmem s = cluster_smem(smem_raw, S);
-  const long long row = blockIdx.x;
-  const long long base = row * S;
-  const int tid = threadIdx.x, nt = blockDim.x;
-
-  // A: compact the valid seeds in slot order; sort-1 keys
-  int n = 0;
-  for (int t0 = 0; t0 < S; t0 += nt) {
-    const int slot = t0 + tid;
-    const int st = slot < S ? strandk[base + slot] : 2;
-    const bool v = st == 0 || st == 1;
-    int tot;
-    const int r = block_rank(v, s.scratch, &tot);
-    if (v) {
-      const int j = n + r;
-      s.key[j] = ((uint64_t)st << 48) | (biased(diagk[base + slot]) << 16)
-                 | (uint64_t)j;
-      s.o_c[j] = ok[base + slot];
-      s.sc_c[j] = score[base + slot];
-    }
-    n += tot;
-  }
-  if (n == 0) {
-    for (int c = tid; c < C; c += nt) {
-      cdiag[row * C + c] = 0;
-      crev[row * C + c] = 0;
-      cvalid[row * C + c] = 0;
-    }
-    return;
-  }
+// Clustering and top-C of one row, phases B-G, by group g: s.key[0, n)
+// holds the sort-1 keys (strand << 48 | (diagonal ^ 2^31) << 16 | slot
+// rank j) and s.o_c[j], s.sc_c[j] each seed's offset and score, n >= 1,
+// written by the group without a barrier since. Writes the row's C
+// candidates from rank 0 and ends synchronised. n <= IPT * g.size().
+template <int IPT, typename G>
+__device__ void cluster_row(const G& g, const ClusterSmem& s, int n, int C,
+                            int gap, long long row,
+                            int32_t* __restrict__ cdiag,
+                            int32_t* __restrict__ crev,
+                            uint8_t* __restrict__ cvalid) {
+  const int tid = g.rank(), nt = g.size();
   int np2 = 1;
   while (np2 < n) np2 <<= 1;
   for (int p = n + tid; p < np2; p += nt) s.key[p] = ~0ull;
-  __syncthreads();
+  g.sync();
 
   // B: sort 1 by (strand, diagonal, slot)
-  bitonic_sort(s.key, np2);
+  bitonic_sort(g, s.key, np2);
 
   // C: cluster breaks -> cluster ids and starts
   for (int p = tid; p < n; p += nt) {
@@ -298,14 +367,14 @@ cluster_kernel(const int32_t* __restrict__ strandk,
     }
     s.cl_diag[p] = brk;
   }
-  __syncthreads();
-  hs_scan<int32_t, kClusterIPT>(s.cl_diag, n);
+  g.sync();
+  hs_scan<int32_t, IPT>(g, s.cl_diag, n);
   for (int p = tid; p < n; p += nt) {
     const int c = s.cl_diag[p] - 1;
     s.cid[p] = (uint16_t)c;
     if (p == 0 || s.cl_diag[p - 1] != s.cl_diag[p]) s.cl_start[c] = p;
   }
-  __syncthreads();
+  g.sync();
   const int nc = s.cid[n - 1] + 1;
   // each cluster's middle element (start + end) / 2 of the sort-1 run
   // gives its diagonal and strand
@@ -316,7 +385,7 @@ cluster_kernel(const int32_t* __restrict__ strandk,
     s.cl_diag[c] = unbiased(k >> 16);
     s.cl_strand[c] = (uint8_t)(k >> 48);
   }
-  __syncthreads();
+  g.sync();
 
   // D: sort 2 by (cluster, read offset, sort-1 position)
   for (int p = tid; p < n; p += nt) {
@@ -325,8 +394,8 @@ cluster_kernel(const int32_t* __restrict__ strandk,
     s.key[p] = ((uint64_t)s.cid[p] << 48) | (biased(s.o_c[j]) << 16)
                | (uint64_t)p;
   }
-  __syncthreads();
-  bitonic_sort(s.key, np2);
+  g.sync();
+  bitonic_sort(g, s.key, np2);
 
   // E: each distinct (cluster, offset) scores once; scan the scores
   float* ps = reinterpret_cast<float*>(s.o_c);
@@ -339,14 +408,14 @@ cluster_kernel(const int32_t* __restrict__ strandk,
     }
     ps[p] = uniq ? s.sc_c[s.jarr[k & 0xffffu]] : 0.0f;
   }
-  __syncthreads();
-  hs_scan<float, kClusterIPT>(ps, n);
+  g.sync();
+  hs_scan<float, IPT>(g, ps, n);
 
   // F: cluster totals, ps[last] - (ps[first] - contrib[first]); the
   // cluster's run has the same positions in both sort orders
-  float tot[kClusterIPT];
+  float tot[IPT];
 #pragma unroll
-  for (int q = 0; q < kClusterIPT; ++q) {
+  for (int q = 0; q < IPT; ++q) {
     const int c = tid + q * nt;
     if (c < nc) {
       const int first = s.cl_start[c];
@@ -355,19 +424,16 @@ cluster_kernel(const int32_t* __restrict__ strandk,
       tot[q] = __fsub_rn(ps[last], __fsub_rn(ps[first], cf));
     }
   }
-  __syncthreads();
+  g.sync();
   float* val = reinterpret_cast<float*>(s.key);
 #pragma unroll
-  for (int q = 0; q < kClusterIPT; ++q) {
+  for (int q = 0; q < IPT; ++q) {
     const int c = tid + q * nt;
     if (c < nc) val[c] = tot[q];
   }
-  __syncthreads();
+  g.sync();
 
   // G: top-C by total, ties to the lower cluster id (lower middle)
-  float* red_v = reinterpret_cast<float*>(s.scratch);
-  int* red_i = s.scratch + 32;
-  const unsigned lane = tid & 31u, warp = tid >> 5;
   for (int out = 0; out < C; ++out) {
     float bv = __int_as_float(0xff800000);   // -inf
     int bi = 0x7fffffff;
@@ -378,48 +444,320 @@ cluster_kernel(const int32_t* __restrict__ strandk,
         bi = c;
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
+    group_argmax(g, bv, bi, s.scratch);
     if (tid == 0) {
-      for (int w = 1; w < (nt >> 5); ++w) {
-        if (red_v[w] > bv || (red_v[w] == bv && red_i[w] < bi)) {
-          bv = red_v[w];
-          bi = red_i[w];
-        }
-      }
       const bool ok_c = bv > 0.0f;
       cdiag[row * C + out] = ok_c ? s.cl_diag[bi] : 0;
       crev[row * C + out] = ok_c ? (int32_t)s.cl_strand[bi] : 0;
       cvalid[row * C + out] = ok_c ? 1 : 0;
       if (ok_c) val[bi] = -1.0f;
     }
-    __syncthreads();
+    g.sync();
+  }
+}
+
+// Warp path: warp w of block b takes row 8 b + w. Rows past kWarpT valid
+// seeds go to overflow[1 + i] (i from the count overflow[0]) and add one
+// to *block_rows, the caller's running count.
+__global__ void __launch_bounds__(kWarpRows * 32, 6)
+cluster_warp_kernel(const int32_t* __restrict__ strandk,
+                    const int32_t* __restrict__ diagk,
+                    const int32_t* __restrict__ ok,
+                    const float* __restrict__ score, int R, int S, int C,
+                    int gap, int32_t* __restrict__ cdiag,
+                    int32_t* __restrict__ crev, uint8_t* __restrict__ cvalid,
+                    int32_t* __restrict__ overflow,
+                    unsigned long long* __restrict__ block_rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarpRows + warp;
+  if (row >= R) return;
+  const int cap = S < kWarpT ? S : kWarpT;
+  const ClusterSmem s = cluster_smem(
+      smem_raw + warp * cluster_arrays_bytes(cap), cap);
+  const long long base = row * S;
+  const int32_t* st_row = strandk + base;
+  const bool vec = (S & 3) == 0
+                   && (reinterpret_cast<uintptr_t>(strandk) & 15u) == 0;
+  const unsigned lt = (1u << lane) - 1u;
+
+  // A: stream the strands, compact the valid slots in slot order
+  int n = 0;
+  for (int c0 = 0; c0 < S && n <= cap; c0 += 128 * kStreamSteps) {
+    int st[kStreamSteps][4];
+#pragma unroll
+    for (int u = 0; u < kStreamSteps; ++u) {
+      const int s0 = c0 + u * 128 + lane * 4;
+      if (vec && s0 < S) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(st_row + s0));
+        st[u][0] = v.x;
+        st[u][1] = v.y;
+        st[u][2] = v.z;
+        st[u][3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[u][e] = s0 + e < S ? st_row[s0 + e] : 2;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStreamSteps; ++u) {
+      const int s0 = c0 + u * 128 + lane * 4;
+      unsigned m = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        m |= (unsigned)(st[u][e] == 0 || st[u][e] == 1) << e;
+      const int cnt = __popc(m);      // 0..4: three ballots rank it
+      const unsigned b0 = __ballot_sync(kFull, cnt & 1);
+      const unsigned b1 = __ballot_sync(kFull, cnt & 2);
+      const unsigned b2 = __ballot_sync(kFull, cnt & 4);
+      int j = n + __popc(b0 & lt) + 2 * __popc(b1 & lt)
+              + 4 * __popc(b2 & lt);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if ((m >> e) & 1u) {
+          if (j < cap) s.cl_diag[j] = (st[u][e] << 16) | (s0 + e);
+          ++j;
+        }
+      }
+      n += __popc(b0) + 2 * __popc(b1) + 4 * __popc(b2);
+    }
+  }
+  if (n > cap) {                      // a dense row: the block path's
+    if (lane == 0) {
+      const int i = atomicAdd(overflow, 1);
+      overflow[1 + i] = (int32_t)row;
+      atomicAdd(block_rows, 1ull);
+    }
+    return;
+  }
+  if (n == 0) {
+    for (int c = lane; c < C; c += 32) {
+      cdiag[row * C + c] = 0;
+      crev[row * C + c] = 0;
+      cvalid[row * C + c] = 0;
+    }
+    return;
+  }
+  __syncwarp();
+  // sort-1 keys; diagonal, offset and score of the valid slots only
+  for (int p = lane; p < n; p += 32) {
+    const int v = s.cl_diag[p];
+    const long long at = base + (v & 0xffff);
+    s.key[p] = ((uint64_t)(v >> 16) << 48) | (biased(diagk[at]) << 16)
+               | (uint64_t)p;
+    s.o_c[p] = ok[at];
+    s.sc_c[p] = score[at];
+  }
+  cluster_row<kWarpIPT>(WarpGroup(), s, n, C, gap, row, cdiag, crev,
+                        cvalid);
+}
+
+// Block path: block b takes the listed rows b, b + grid, ...
+__global__ void __launch_bounds__(kClusterThreads)
+cluster_block_kernel(const int32_t* __restrict__ strandk,
+                     const int32_t* __restrict__ diagk,
+                     const int32_t* __restrict__ ok,
+                     const float* __restrict__ score, int S, int C, int gap,
+                     int32_t* __restrict__ cdiag, int32_t* __restrict__ crev,
+                     uint8_t* __restrict__ cvalid,
+                     const int32_t* __restrict__ overflow) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BlockGroup g{};
+  const ClusterSmem s = cluster_smem(smem_raw, S);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int count = overflow[0];
+  for (int i = blockIdx.x; i < count; i += gridDim.x) {
+    const long long row = overflow[1 + i];
+    const long long base = row * S;
+    // A: compact the valid seeds in slot order; sort-1 keys
+    int n = 0;
+    for (int t0 = 0; t0 < S; t0 += nt) {
+      const int slot = t0 + tid;
+      const int st = slot < S ? strandk[base + slot] : 2;
+      const bool v = st == 0 || st == 1;
+      int tot;
+      const int r = block_rank(v, s.scratch, &tot);
+      if (v) {
+        const int j = n + r;
+        s.key[j] = ((uint64_t)st << 48) | (biased(diagk[base + slot]) << 16)
+                   | (uint64_t)j;
+        s.o_c[j] = ok[base + slot];
+        s.sc_c[j] = score[base + slot];
+      }
+      n += tot;
+    }
+    cluster_row<kClusterIPT>(g, s, n, C, gap, row, cdiag, crev, cvalid);
   }
 }
 
 // ------------------------------------------------------------ argsort
 
-__global__ void __launch_bounds__(kArgsortThreads)
-argsort_kernel(const int32_t* __restrict__ keys, int n, int np2,
+// Shared memory of the argsort block of W warps, E words a lane: the
+// words between passes, the (warp, digit) counts, the warp sums.
+__host__ __device__ constexpr long long argsort_smem(int W, int E) {
+  return 8ll * 32 * W * E + 4ll * 256 * W + 4 * 32;
+}
+
+template <int E>
+__global__ void __launch_bounds__(1024)
+argsort_kernel(const int32_t* __restrict__ keys, int n,
                int32_t* __restrict__ perm) {
-  extern __shared__ uint64_t words[];
-  for (int i = threadIdx.x; i < np2; i += blockDim.x)
-    words[i] = i < n ? (biased(keys[i]) << 32) | (uint64_t)i : ~0ull;
-  __syncthreads();
-  bitonic_sort(words, np2);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    perm[i] = (int32_t)(words[i] & 0xffffffffu);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  uint64_t* words = reinterpret_cast<uint64_t*>(smem_raw);
+  int* hist = reinterpret_cast<int*>(smem_raw + 8ll * 32 * W * E);
+  int* wsum = hist + 256 * W;
+  int* hw = hist + 256 * warp;       // this warp's digit counts
+  const unsigned lt = (1u << lane) - 1u;
+  const int first = warp * 32 * E + lane;   // position of item e: + 32 e
+  // the scan's entries of thread t: 8 t on, entry f at (warp f % W,
+  // digit f / W)
+  const int d0 = threadIdx.x * 8 / W, w0 = threadIdx.x * 8 - d0 * W;
+  uint32_t key[E], idx[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const int p = first + 32 * e;
+    key[e] = p < n ? (uint32_t)keys[p] ^ 0x80000000u : 0xffffffffu;
+    idx[e] = (uint32_t)p;
+  }
+  for (int shift = 0; shift < 32; shift += 8) {
+    // rank each item among the warp's items of its digit, in position
+    // order; count the warp's digits
+    for (int d = lane; d < 256; d += 32) hw[d] = 0;
+    __syncwarp();
+    int rank[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const unsigned d = (key[e] >> shift) & 255u;
+      unsigned peers = kFull;            // the lanes with digit d
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const unsigned bit = __ballot_sync(kFull, (d >> b) & 1u);
+        peers &= ((d >> b) & 1u) ? bit : ~bit;
+      }
+      const int leader = __ffs(peers) - 1;
+      int c = lane == leader ? hw[d] : 0;
+      c = __shfl_sync(kFull, c, leader);
+      rank[e] = c + __popc(peers & lt);
+      if (lane == leader) hw[d] = c + __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    // exclusive scan of the counts in (digit, warp) order, 8 a thread
+    int v[8], sum = 0;
+#pragma unroll
+    for (int q = 0, d = d0, w = w0; q < 8; ++q) {
+      v[q] = hist[w * 256 + d];
+      sum += v[q];
+      if (++w == W) {
+        w = 0;
+        ++d;
+      }
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      int x = lane < W ? wsum[lane] : 0;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, off);
+        if (lane >= off) x += y;
+      }
+      wsum[lane] = x;
+    }
+    __syncthreads();
+    int run = incl - sum + (warp > 0 ? wsum[warp - 1] : 0);
+#pragma unroll
+    for (int q = 0, d = d0, w = w0; q < 8; ++q) {
+      hist[w * 256 + d] = run;
+      run += v[q];
+      if (++w == W) {
+        w = 0;
+        ++d;
+      }
+    }
+    __syncthreads();
+    // move each word to its place: into shared memory for the next
+    // pass, or, after the last digit, its index into the output
+    if (shift < 24) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        words[hw[(key[e] >> shift) & 255u] + rank[e]] =
+            ((uint64_t)key[e] << 32) | idx[e];
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const uint64_t w = words[first + 32 * e];
+        key[e] = (uint32_t)(w >> 32);
+        idx[e] = (uint32_t)w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const int pos = hw[key[e] >> 24] + rank[e];
+        if (pos < n) perm[pos] = (int32_t)idx[e];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- device set-up
+
+std::mutex g_setup_mutex;
+std::atomic<bool> g_ready[kMaxDevices];
+int g_sms[kMaxDevices];
+std::atomic<int> g_attr_sets{0};
+
+cudaError_t raise_smem(const void* fn, long long bytes) {
+  g_attr_sets.fetch_add(1);
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Make `device` current and, once per device, raise the kernels' dynamic
+// shared-memory limits to the most any call takes and read its SM count.
+cudaError_t prepare(int device) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  if (cur != device && (e = cudaSetDevice(device)) != cudaSuccess) return e;
+  if (g_ready[device].load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(g_setup_mutex);
+  if (g_ready[device].load(std::memory_order_relaxed)) return cudaSuccess;
+  if ((e = raise_smem((const void*)cluster_warp_kernel,
+                      kWarpRows * cluster_arrays_bytes(kWarpT)))
+          != cudaSuccess
+      || (e = raise_smem((const void*)cluster_block_kernel,
+                         cluster_arrays_bytes(kClusterMaxS) + 256))
+             != cudaSuccess
+      || (e = raise_smem((const void*)argsort_kernel<8>,
+                         argsort_smem(32, 8))) != cudaSuccess
+      || (e = raise_smem((const void*)argsort_kernel<16>,
+                         argsort_smem(32, 16))) != cudaSuccess)
+    return e;
+  e = cudaDeviceGetAttribute(&g_sms[device], cudaDevAttrMultiProcessorCount,
+                             device);
+  if (e != cudaSuccess) return e;
+  g_ready[device].store(true, std::memory_order_release);
+  return cudaSuccess;
+}
+
+template <int E>
+cudaError_t launch_argsort(const int32_t* keys, int n, int32_t* perm,
+                           cudaStream_t stream) {
+  const int W = (n + 32 * E - 1) / (32 * E);
+  argsort_kernel<E><<<1, 32 * W, argsort_smem(W, E), stream>>>(keys, n,
+                                                               perm);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -441,7 +779,7 @@ extern "C" int seed_softcap(int device, const void* ms, const void* keep,
   if (mpad < 128 || mpad > 1024 || (mpad & (mpad - 1)) || m > mpad || m < 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
-  const cudaError_t set = cudaSetDevice(device);
+  const cudaError_t set = prepare(device);
   if (set != cudaSuccess) return (int)set;
   const size_t smem = 5 * sizeof(float) * (size_t)mpad;
   softcap_kernel<<<R, mpad, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -455,34 +793,49 @@ extern "C" int seed_softcap(int device, const void* ms, const void* keep,
   return (int)cudaGetLastError();
 }
 
-// Shared memory the cluster kernel takes for S slots.
-extern "C" long long seed_cluster_smem(int S) {
-  return 20ll * S + 256 + 7ll * S;
-}
+// Most valid seeds a row may hold and stay on the warp path.
+extern "C" int seed_cluster_warp_t() { return kWarpT; }
+
+// Dynamic shared-memory attributes set so far (once per device and
+// kernel).
+extern "C" int seed_attr_sets() { return g_attr_sets.load(); }
 
 // strandk, diagk, ok (R, S) int32, score (R, S) f32 -> cdiag, crev (R, C)
 // int32, cvalid (R, C) bool; S a power of two <= 4096, strandk in {0, 1, 2}.
+// overflow: (R + 1,) int32 scratch, the block path's row list;
+// block_rows: one uint64 that gains the number of rows the block path took.
 extern "C" int seed_cluster(int device, const void* strandk,
                             const void* diagk, const void* ok,
                             const void* score, int R, int S, int C,
                             int band_radius, void* cdiag, void* crev,
-                            void* cvalid, void* stream) {
+                            void* cvalid, void* overflow, void* block_rows,
+                            void* stream) {
   if (S < 1 || S > kClusterMaxS || (S & (S - 1)) || C < 0)
     return (int)cudaErrorInvalidValue;
   if (R == 0 || C == 0) return (int)cudaSuccess;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
-  const int smem = (int)seed_cluster_smem(S);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  cluster_kernel<<<R, kClusterThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t e = prepare(device);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((e = cudaMemsetAsync(overflow, 0, sizeof(int32_t), st)) != cudaSuccess)
+    return (int)e;
+  const int cap = S < kWarpT ? S : kWarpT;
+  cluster_warp_kernel<<<(R + kWarpRows - 1) / kWarpRows, kWarpRows * 32,
+                        kWarpRows * cluster_arrays_bytes(cap), st>>>(
+      static_cast<const int32_t*>(strandk),
+      static_cast<const int32_t*>(diagk), static_cast<const int32_t*>(ok),
+      static_cast<const float*>(score), R, S, C, 2 * band_radius,
+      static_cast<int32_t*>(cdiag), static_cast<int32_t*>(crev),
+      static_cast<uint8_t*>(cvalid), static_cast<int32_t*>(overflow),
+      static_cast<unsigned long long*>(block_rows));
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int grid = R < 2 * g_sms[device] ? R : 2 * g_sms[device];
+  cluster_block_kernel<<<grid, kClusterThreads,
+                         cluster_arrays_bytes(S) + 256, st>>>(
       static_cast<const int32_t*>(strandk),
       static_cast<const int32_t*>(diagk), static_cast<const int32_t*>(ok),
       static_cast<const float*>(score), S, C, 2 * band_radius,
       static_cast<int32_t*>(cdiag), static_cast<int32_t*>(crev),
-      static_cast<uint8_t*>(cvalid));
+      static_cast<uint8_t*>(cvalid), static_cast<const int32_t*>(overflow));
   return (int)cudaGetLastError();
 }
 
@@ -491,17 +844,11 @@ extern "C" int seed_cluster(int device, const void* strandk,
 extern "C" int seed_argsort(int device, const void* keys, int n, void* perm,
                             void* stream) {
   if (n < 1 || n > kArgsortMaxN) return (int)cudaErrorInvalidValue;
-  const cudaError_t set = cudaSetDevice(device);
+  const cudaError_t set = prepare(device);
   if (set != cudaSuccess) return (int)set;
-  int np2 = 1;
-  while (np2 < n) np2 <<= 1;
-  const int smem = (int)(sizeof(uint64_t) * np2);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      argsort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return (int)attr;
-  argsort_kernel<<<1, kArgsortThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(keys), n, np2,
-      static_cast<int32_t*>(perm));
-  return (int)cudaGetLastError();
+  const auto* k = static_cast<const int32_t*>(keys);
+  auto* p = static_cast<int32_t*>(perm);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (int)(n <= 8192 ? launch_argsort<8>(k, n, p, st)
+                         : launch_argsort<16>(k, n, p, st));
 }

@@ -1,9 +1,11 @@
 """Device-side seeding kernels: CUDA C++ kernels and their plain versions.
 
-The counterpart of vg_tpu/ops/pallas_seed.py on the H100. Three kernels in
+The counterpart of vg_tpu/ops/pallas_seed.py on the H100. The kernels in
 csrc/seed_kernels.cu (CUDA C++ for sm_90a) replace the TPU kernels
-_softcap_kernel, _cluster_kernel and _argsort_kernel; the source note says
-what bounds each and what the simple design gives up.
+_softcap_kernel, _cluster_kernel (two kernels: a warp per row, and a
+block per row for rows of more than CLUSTER_WARP_T valid seeds) and
+_argsort_kernel; the source note says what bounds each and why it is
+built as it is.
 
 Each wrapper takes the arguments of its JAX counterpart and returns the
 same arrays. CUDA tensors launch the kernel (counted in `<wrapper>.launches`)
@@ -29,8 +31,9 @@ from . import cuda_build
 
 _SRC = cuda_build.PKG / "csrc" / "seed_kernels.cu"
 I32MAX = 2**31 - 1
-ARGSORT_MAX_N = 16384      # keys one argsort block sorts in shared memory
+ARGSORT_MAX_N = 16384      # keys one argsort block sorts
 CLUSTER_MAX_S = 4096       # seed slots a cluster block holds
+CLUSTER_WARP_T = 128       # valid seeds a row may hold on the warp path
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -54,11 +57,24 @@ def library() -> ctypes.CDLL:
         lib.seed_softcap.argtypes = ([_I] + [_P] * 6 + [_I] * 3
                                      + [ctypes.c_float] + [_P] * 7)
         lib.seed_cluster.restype = _I
-        lib.seed_cluster.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P] * 4
+        lib.seed_cluster.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P] * 6
         lib.seed_argsort.restype = _I
         lib.seed_argsort.argtypes = [_I, _P, _I, _P, _P]
+        lib.seed_cluster_warp_t.restype = _I
+        lib.seed_attr_sets.restype = _I
+        if lib.seed_cluster_warp_t() != CLUSTER_WARP_T:
+            raise RuntimeError(
+                f"seed_kernels.cu keeps rows of up to "
+                f"{lib.seed_cluster_warp_t()} seeds on the warp path, "
+                f"cuda_seed.CLUSTER_WARP_T says {CLUSTER_WARP_T}")
         _lib = lib
         return _lib
+
+
+def attribute_sets() -> int:
+    """Dynamic shared-memory attributes the library has set: once per
+    device and kernel, at the first launch on the device."""
+    return library().seed_attr_sets()
 
 
 def pow2_ge(x: int) -> int:
@@ -205,7 +221,10 @@ def cluster_topc(strandk, diagk, ok, score, *, band_radius: int,
     vg_tpu's cluster_topc. Inputs (R, S), S a power of two: strandk int32
     (0 fwd / 1 rev / 2 invalid), diagk int32, ok int32 read offsets, score
     f32. Returns (cand_diag, cand_rev, cand_valid), each (R, C): int32,
-    int32, bool."""
+    int32, bool. On the card one call is two launches: the warp kernel
+    takes the rows of up to CLUSTER_WARP_T valid seeds and lists the
+    others, which the block kernel then takes; the card's running count of
+    those rows is read by block_rows_read()."""
     if not _cuda_or_cpu(strandk, "cluster_topc"):
         return cluster_topc_ref(strandk, diagk, ok, score,
                                 band_radius=band_radius,
@@ -225,16 +244,49 @@ def cluster_topc(strandk, diagk, ok, score, *, band_radius: int,
     cdiag = torch.empty((R, C), dtype=torch.int32, device=dev)
     crev = torch.empty((R, C), dtype=torch.int32, device=dev)
     cvalid = torch.empty((R, C), dtype=torch.bool, device=dev)
+    overflow = torch.empty(R + 1, dtype=torch.int32, device=dev)
     index, stream = cuda_build.launch_args(strandk)
     err = library().seed_cluster(
         index, *(t.data_ptr() for t in ins), R, S, C, int(band_radius),
-        cdiag.data_ptr(), crev.data_ptr(), cvalid.data_ptr(), stream)
+        cdiag.data_ptr(), crev.data_ptr(), cvalid.data_ptr(),
+        overflow.data_ptr(), _block_rows_counter(dev).data_ptr(), stream)
     _raise_on(err, "seed_cluster")
     cluster_topc.launches += 1
     return cdiag, crev, cvalid
 
 
 cluster_topc.launches = 0
+cluster_topc.block_rows = 0
+_block_rows = {}           # card index -> int64 count of block-path rows
+
+
+def _block_rows_counter(dev: torch.device) -> torch.Tensor:
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    with _lib_lock:
+        if index not in _block_rows:
+            _block_rows[index] = torch.zeros(
+                1, dtype=torch.int64, device=torch.device("cuda", index))
+        return _block_rows[index]
+
+
+def block_rows_read() -> int:
+    """Rows the block path of cluster_topc took since the last reset, over
+    all cards; also stored in cluster_topc.block_rows. Copies the cards'
+    counters to the host: call it after the work it counts, never on a
+    mapping path."""
+    with _lib_lock:
+        counters = list(_block_rows.values())
+    cluster_topc.block_rows = sum(int(c.item()) for c in counters)
+    return cluster_topc.block_rows
+
+
+def block_rows_reset() -> None:
+    """Zero the cards' counters of block-path rows and the attribute."""
+    with _lib_lock:
+        for c in _block_rows.values():
+            c.zero_()
+    cluster_topc.block_rows = 0
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -340,7 +392,8 @@ def cluster_work(strandk: torch.Tensor, C: int) -> tuple:
 def argsort_i32(keys):
     """Ascending argsort of a 1-D int32 vector, ties broken by index (the
     contract of vg_tpu's argsort_i32; its TPU network breaks ties by
-    position in the padded row, see csrc/seed_kernels.cu). Returns the
+    position in the padded row, see csrc/seed_kernels.cu; the kernel is a
+    one-block radix sort). Returns the
     int32 permutation. Up to ARGSORT_MAX_N keys launch the kernel; above,
     torch.argsort(stable=True) sorts them, as vg_tpu hands large n to
     XLA's sort."""

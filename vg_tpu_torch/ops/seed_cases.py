@@ -3,16 +3,22 @@ edge cases, made with numpy from a seed. tests/test_torch_seed_kernel.py
 and chip_smoke.py hold each kernel against its plain version on them.
 
 Scores are quantized to 1/256 (index/minimizer.minimizer_score_table), as
-on the path, so every comparison is exact.
+on the path, except in cluster_float_case. The kernels add scores in the
+order their plain versions do, so every comparison is exact either way.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..index.minimizer import minimizer_score_table
-from .cuda_seed import I32MAX
+from .cuda_seed import CLUSTER_WARP_T, I32MAX
 
-ARGSORT_SIZES = (1, 200, 4096, 6144, 16384)
+ARGSORT_SIZES = (1, 200, 257, 2049, 4096, 6144, 8192, 16384)
+# valid seeds a row holds in cluster_count_case: the warp's lane count and
+# the warp path's limit T, each side of them, and a full row
+CLUSTER_COUNTS = (1, 31, 32, 33, CLUSTER_WARP_T - 1, CLUSTER_WARP_T,
+                  CLUSTER_WARP_T + 1, 4096)
+QUANTIZED = np.array([1.0, 1.5, 2.25, 4.0, 3.125])
 
 
 def softcap_case(rng, R: int, m: int = 132, hard_hit_cap: int = 500,
@@ -51,7 +57,7 @@ def cluster_case(rng, R: int, S: int, B: int = 16):
     diag = hot[np.arange(R)[:, None], rng.integers(0, 6, (R, S))] \
         + rng.integers(-B, B + 1, (R, S))
     off = rng.integers(0, 120, (R, S))
-    score = rng.choice(np.array([1.0, 1.5, 2.25, 4.0, 3.125]), (R, S))
+    score = rng.choice(QUANTIZED, (R, S))
     for r in range(R):
         kind = r % 8
         if kind == 0:                               # empty row
@@ -79,11 +85,81 @@ def cluster_case(rng, R: int, S: int, B: int = 16):
             score[r, :n] = 2.0
         elif kind == 5:                             # every slot valid
             valid[r] = True
+    return _cluster_arrays(valid, strand, diag, off, score)
+
+
+def _cluster_arrays(valid, strand, diag, off, score):
+    """(strandk, diagk, ok, score) as the path lays them out: strand 2,
+    I32MAX and 0.0 in the invalid slots."""
     strandk = np.where(valid, strand, 2).astype(np.int32)
     diagk = np.where(valid, np.clip(diag, -2**31, 2**31 - 1),
                      I32MAX).astype(np.int32)
     ok = np.where(valid, off, I32MAX).astype(np.int32)
     return strandk, diagk, ok, np.where(valid, score, 0.0).astype(np.float32)
+
+
+def cluster_count_case(rng, S: int, B: int = 16, counts=CLUSTER_COUNTS,
+                       copies: int = 2):
+    """`copies` rows for each count of `counts` up to S, each row holding
+    exactly that many valid seeds in random slots, around a few diagonal
+    hotspots with duplicate read offsets and quantized scores."""
+    ks = np.repeat([k for k in counts if k <= S], copies)
+    R = len(ks)
+    strand = rng.integers(0, 2, (R, S))
+    hot = rng.integers(0, 1 << 24, (R, 6))
+    diag = hot[np.arange(R)[:, None], rng.integers(0, 6, (R, S))] \
+        + rng.integers(-B, B + 1, (R, S))
+    off = rng.integers(0, 120, (R, S))
+    score = rng.choice(QUANTIZED, (R, S))
+    valid = np.zeros((R, S), bool)
+    for r, k in enumerate(ks):
+        valid[r, rng.choice(S, size=int(k), replace=False)] = True
+    return _cluster_arrays(valid, strand, diag, off, score)
+
+
+def cluster_float_case(rng, R: int, S: int, B: int = 16):
+    """Scores drawn as arbitrary float32. Each row holds six pairs of
+    clusters; the two clusters of a pair carry the same scores at permuted
+    read offsets (so a different order in the score scan), and their
+    totals differ, or tie, by rounding alone. Some clusters repeat a read
+    offset with another score. Every fourth row also carries filler seeds
+    that take it past CLUSTER_WARP_T, where S allows."""
+    valid = np.zeros((R, S), bool)
+    strand = np.zeros((R, S), np.int64)
+    diag = np.zeros((R, S), np.int64)
+    off = np.zeros((R, S), np.int64)
+    score = np.zeros((R, S), np.float32)
+    for r in range(R):
+        slots = rng.permutation(S)
+        used = 0
+
+        def put(k, st, dg, of, sc):
+            nonlocal used
+            at = slots[used : used + k]
+            used += k
+            valid[r, at] = True
+            strand[r, at], diag[r, at], off[r, at], score[r, at] = \
+                st, dg, of, sc
+
+        for q in range(6):
+            k = int(rng.integers(2, 13))
+            sc = (rng.random(k) * 4 + 0.01).astype(np.float32)
+            for half, order in enumerate((np.arange(k), rng.permutation(k))):
+                if used + k + 1 > S:
+                    break
+                d0 = 1000 + (2 * q + half) * 50 * B
+                st = int(rng.integers(0, 2))
+                put(k, st, d0 + rng.integers(0, 2 * B + 1, k), order, sc)
+                if rng.random() < 0.3:             # a repeated offset
+                    put(1, st, d0 + int(rng.integers(0, 2 * B + 1)),
+                        int(order[0]), np.float32(rng.random() * 4 + 0.01))
+        fill = CLUSTER_WARP_T + 1 + int(rng.integers(0, 40)) - used
+        if r % 4 == 3 and used + fill <= S:
+            put(fill, rng.integers(0, 2, fill),
+                rng.integers(-(1 << 20), 1 << 20, fill),
+                rng.integers(0, 120, fill),
+                (rng.random(fill) * 4 + 0.01).astype(np.float32))
+    return _cluster_arrays(valid, strand, diag, off, score)
 
 
 def argsort_case(rng, n: int) -> np.ndarray:
