@@ -4,8 +4,8 @@
     python3 chip_smoke.py [--ref-mbp 1.0] [--seed 42] [--profile]
                           [--compare-parent DIR]
 
-Builds the port's kernels (vg_tpu_torch/csrc/banded_dp.cu and
-csrc/seed_kernels.cu, nvcc) and the native host library
+Builds the port's kernels (vg_tpu_torch/csrc/banded_dp.cu,
+csrc/seed_kernels.cu and csrc/int_pipes.cu, nvcc) and the native host library
 (vg_tpu_torch/native/vgtpu_host.cpp, g++) from the sources in the checkout,
 all at once, and holds every kernel against its plain PyTorch version on
 the card: the banded DP through its three entries (packed text, byte
@@ -35,11 +35,16 @@ Imports nothing of JAX or vg_tpu.
 
 Kernel times are device times: a spin kernel holds the stream while the
 host enqueues the timed calls (device_ms); the enqueue-inclusive reading
-of back-to-back calls (cuda_ms) is printed beside it. --compare-parent DIR
+of back-to-back calls (cuda_ms) is printed beside it. The build phase
+prints each kernel's ptxas line (registers, spills) and, from cuobjdump
+-sass, the DPX instructions of each banded-DP kernel; then
+csrc/int_pipes.cu measures the issue rate and latency of the DP's
+instruction kinds. --compare-parent DIR
 loads the vg_tpu_torch package of another checkout (DIR, e.g. a
-`git archive` of the parent commit), builds its seeding kernels, and
-times its cluster_topc and argsort_i32 against this tree's on the main
-path's inputs, in turns, after checking that both give the same outputs.
+`git archive` of the parent commit), builds its kernels, and times its
+softcap_compact, cluster_topc, argsort_i32 and packed banded DP against
+this tree's on the main path's inputs, in turns, after checking that both
+give the same outputs.
 
 Output: one line per phase, then a JSON line with the kernels' numbers,
 the card's name and power limit, and as the last line
@@ -51,6 +56,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
+import re
 import subprocess
 import sys
 import threading
@@ -293,6 +300,7 @@ def phase_build():
     threads = [threading.Thread(target=run, args=a) for a in
                (("banded_dp.cu (nvcc)", cuda_align.library),
                 ("seed_kernels.cu (nvcc)", cuda_seed.library),
+                ("int_pipes.cu (nvcc)", pipes_library),
                 ("vgtpu_host.cpp (g++)", native.lib))]
     for t in threads:
         t.start()
@@ -307,6 +315,92 @@ def phase_build():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 log("  ptxas: " + line.strip())
+    sass_check(cuda_align.build_info["path"])
+
+
+DPX_OPS = ("VIADDMNMX", "VIMNMX3")     # Hopper's fused DP instructions
+_pipes = {}
+
+
+def pipes_library():
+    """csrc/int_pipes.cu (the integer pipes' rate and latency), built and
+    bound once."""
+    import ctypes
+
+    from vg_tpu_torch.ops import cuda_build
+
+    if "lib" not in _pipes:
+        lib = cuda_build.build(cuda_build.PKG / "csrc" / "int_pipes.cu", {})
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.pipe_rate.argtypes = [I, I, P, P, I]
+        lib.pipe_latency.argtypes = [I, P, P, I]
+        _pipes["lib"] = lib
+    return _pipes["lib"]
+
+
+def phase_int_pipes(card):
+    """The issue rate (warp-instructions a cycle an SM, 8 and 16 warps an
+    SM) and the dependent-chain latency (cycles) of the DP's instruction
+    kinds, from SM clock counters."""
+    lib = pipes_library()
+    out = torch.zeros(132 * 32 * 16, dtype=torch.int32, device="cuda")
+    cyc = torch.zeros(132, dtype=torch.int64, device="cuda")
+    n = lib.pipe_instructions()
+    res = {}
+    for kind, name in enumerate(("VIADDMNMX (s32)", "VIADDMNMX.S16x2",
+                                 "IMAD", "VIMNMX3.S16x2")):
+        rates = []
+        for warps in (8, 16):
+            for _ in range(2):            # the second run is timed
+                assert lib.pipe_rate(kind, warps, out.data_ptr(),
+                                     cyc.data_ptr(), -5) == 0
+                torch.cuda.synchronize()
+            rates.append(warps * n / float(cyc.double().median()))
+        for _ in range(2):
+            assert lib.pipe_latency(kind, out.data_ptr(), cyc.data_ptr(),
+                                    -5) == 0
+            torch.cuda.synchronize()
+        lat = float(cyc[0]) / 1024
+        res[name] = dict(rate_8_warps=rates[0], rate_16_warps=rates[1],
+                         latency_cycles=lat)
+        log(f"int pipes, {name}: {rates[0]:.3f} / {rates[1]:.3f} "
+            f"warp-instructions a cycle an SM (8 / 16 warps), latency "
+            f"{lat:.2f} cycles, on {card}")
+    return res
+
+
+def sass_check(lib_path):
+    """cuobjdump -sass of the banded-DP library: for each kernel, its
+    instruction count and its DPX and other integer min/max instructions.
+    Fails unless every instantiation of either DP kernel issues both DPX
+    forms."""
+    from vg_tpu_torch.ops import cuda_build
+
+    tool = pathlib.Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = {}
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)", line)
+        if name and ins:
+            op = ins.group(1)
+            funcs[name][op] = funcs[name].get(op, 0) + 1
+    for fn, ops in sorted(funcs.items()):
+        if not re.search(r"banded_dp(16)?_kernel", fn):
+            continue
+        short = re.sub(r"^_ZN\w*?banded_dp", "banded_dp", fn)
+        mnmx = {op: n for op, n in sorted(ops.items()) if "MNMX" in op}
+        log(f"  sass {short[:60]}: {sum(ops.values())} instructions; "
+            f"min/max {json.dumps(mnmx)}")
+        missing = [d for d in DPX_OPS
+                   if not any(op.split(".")[0] == d for op in ops)]
+        assert not missing, f"{fn} issues no {missing}"
 
 
 def adversarial_batch(rng, text, R, C=8, RL=160, B=BAND, L=150):
@@ -436,16 +530,18 @@ def time_kernel(packed, T, t):
     R, RL = t[0].shape
     return dict(time_entry(run_k, run_p, nbytes, ops),
                 shape=f"R={R} C={t[3].shape[1]} RL={RL} B={BAND}",
-                valid=int(t[-1].sum()))
+                valid=int(t[-1].sum()), slots=t[-1].numel())
 
 
 def phase_kernel(text, real_batches):
     """The kernel against its plain version on the same inputs: the
     adversarial batch at the main path's shape (B = 16) and at B = 8, 12,
-    and the main path's own candidate tables. Exact equality. Times and
-    bounds on the main path's first batch (its own inputs) and on the
-    adversarial B = 16 batch (90% of slots valid)."""
-    from vg_tpu_torch.ops import cuda_align
+    dp_cases' valid-slot patterns (blocks with every slot valid, none,
+    one, every other one) at B = 8, 12, 16, and the main path's own
+    candidate tables. Exact equality. Times and bounds on the main path's
+    first batch (its own inputs) and on the adversarial B = 16 batch (90%
+    of slots valid)."""
+    from vg_tpu_torch.ops import cuda_align, dp_cases
 
     dev = torch.device("cuda")
     T = len(text)
@@ -456,6 +552,9 @@ def phase_kernel(text, real_batches):
     for b in (8, 12):
         cases.append((f"adversarial R=1024 B={b}", b,
                       adversarial_batch(rng, text, 1024, B=b)))
+    for b in (8, 12, BAND):
+        cases.append((f"valid-slot patterns R=2048 B={b}", b,
+                      dp_cases.block_case(rng, R=2048, B=b, text=text)[1:]))
     cases += [(f"main path batch {k}", BAND, a)
               for k, a in enumerate(real_batches)]
     mism = 0
@@ -479,9 +578,15 @@ def phase_kernel(text, real_batches):
     if mism:
         raise AssertionError(f"banded_dp disagrees with its plain version "
                              f"on {mism} slots")
+    inputs["main path batch 0, first 768 reads"] = [
+        x[: BATCH // 8] for x in inputs["main path batch 0"]]
+    log(f"banded_dp routes so far: {json.dumps(cuda_align.launches_by_route())}"
+        f" (16: two slots a thread in 16-bit halves, 32: int32)")
     return dict(max_abs_err=err, mismatches=mism,
                 timed={name: time_kernel(packed, T, inputs[name])
-                       for name in ("main path batch 0", adv)})
+                       for name in ("main path batch 0", adv,
+                                    "main path batch 0, first 768 reads")},
+                main_inputs=(packed, T, inputs["main path batch 0"]))
 
 
 def placed(mapper, recs, truth, tol=100):
@@ -732,21 +837,43 @@ def seed_counts(strandk) -> dict:
                 over_t=int((n > cuda_seed.CLUSTER_WARP_T).sum()))
 
 
+def kept_counts(sc_in) -> dict:
+    """Kept and nonzero-score columns a row of a softcap_compact input
+    (mean, p99, max); the kernel sorts the nonzero ones."""
+    out = {}
+    for name, x in (("kept", sc_in[1]), ("nonzero", sc_in[0] != 0)):
+        n = x.sum(dim=1).double()
+        out[name] = dict(mean=float(n.mean()),
+                         p99=float(torch.quantile(n, 0.99)),
+                         max=int(n.max()))
+    return out
+
+
 def phase_seed_kernels(mapper, reads):
     """Each seeding kernel against its plain version on the card, exact:
     on the main path's own inputs and on the adversarial cases of
-    vg_tpu_torch.ops.seed_cases (among them rows of 1, 31, 32, 33, T - 1,
-    T, T + 1 and 4096 valid seeds, non-quantized scores, argsort sizes
-    around the warp and block widths). cluster_topc's block path must take
-    exactly the rows over T of each input. Device times and bounds on the
-    main path's inputs (plain, kernel, kernel, plain). Returns the
-    numbers and the main path's inputs."""
+    vg_tpu_torch.ops.seed_cases (among them soft-cap rows of every width
+    m = 1 to 1024, of 31-33 and 63-65 kept columns, zeros of either sign,
+    negative scores and exclusive sums equal to the budget; cluster rows of
+    1, 31, 32, 33, T - 1, T, T + 1 and 4096 valid seeds, non-quantized
+    scores; argsort sizes around the warp and block widths). The soft-cap
+    entry must take the instantiation of mpad / 32 columns a lane, and
+    cluster_topc's block path exactly the rows over T of each input.
+    Device times and bounds on the main path's inputs (plain, kernel,
+    kernel, plain). Returns the numbers and the main path's inputs."""
     from vg_tpu_torch.ops import cuda_seed, seed_cases
 
     dev = mapper.device
     p = mapper.params
     sf, B, C = p.score_fraction, p.band_radius, p.max_candidates
     sc_in, cl_in, key, perm = seed_kernel_inputs(mapper, reads)
+    kept = kept_counts(sc_in)
+    log(f"softcap_compact main path batch: {sc_in[0].shape[0]} rows of "
+        f"{sc_in[0].shape[1]} columns; kept columns a row mean "
+        f"{kept['kept']['mean']:.2f}, p99 {kept['kept']['p99']:.1f}, max "
+        f"{kept['kept']['max']}; nonzero scores a row mean "
+        f"{kept['nonzero']['mean']:.2f}, p99 {kept['nonzero']['p99']:.1f}, "
+        f"max {kept['nonzero']['max']}")
     dist = seed_counts(cl_in[0])
     before = cuda_seed.block_rows_read()
     cuda_seed.cluster_topc(*cl_in, band_radius=B, max_candidates=C)
@@ -760,10 +887,14 @@ def phase_seed_kernels(mapper, reads):
     assert dist["block_rows"] == dist["over_t"], dist
     rng = np.random.default_rng(5)
     put = lambda arrs: [torch.as_tensor(a, device=dev) for a in arrs]
+    # soft-cap cases off the path's score_fraction carry their own
+    frac = lambda a: a[6] if len(a) > 6 else sf
     run = {
         "softcap_compact": (
-            lambda a: cuda_seed.softcap_compact(*a, score_fraction=sf),
-            lambda a: cuda_seed.softcap_compact_ref(*a, score_fraction=sf)),
+            lambda a: cuda_seed.softcap_compact(*a[:6],
+                                                score_fraction=frac(a)),
+            lambda a: cuda_seed.softcap_compact_ref(
+                *a[:6], score_fraction=frac(a))),
         "cluster_topc": (
             lambda a: cuda_seed.cluster_topc(*a, band_radius=B,
                                              max_candidates=C),
@@ -775,7 +906,17 @@ def phase_seed_kernels(mapper, reads):
     cases = {
         "softcap_compact": [("main path", sc_in), (
             f"adversarial R={BATCH}",
-            put(seed_cases.softcap_case(rng, BATCH)))],
+            put(seed_cases.softcap_case(rng, BATCH)))] + [
+            (f"width m={m}", put(seed_cases.softcap_case(rng, 1024, m)))
+            for m in seed_cases.SOFTCAP_WIDTHS] + [
+            (f"kept columns {seed_cases.SOFTCAP_KEPT}",
+             put(seed_cases.softcap_kept_case(rng, copies=64))),
+            ("signed zeros and negative scores R=1024",
+             put(seed_cases.softcap_sign_case(rng, 1024))),
+            ("signed zeros and negative scores R=512 m=600, fraction 0.7",
+             put(seed_cases.softcap_sign_case(rng, 512, 600)) + [0.7]),
+            ("exclusive sum at the budget R=1024, fraction 0.5",
+             put(seed_cases.softcap_budget_case(rng, 1024)) + [0.5])],
         "cluster_topc": [("main path", cl_in)] + [
             (f"adversarial R={R} S={S}",
              put(seed_cases.cluster_case(rng, R, S, B)))
@@ -798,10 +939,17 @@ def phase_seed_kernels(mapper, reads):
         bad_all, err_all = 0, 0.0
         for label, args in items:
             rows0 = cuda_seed.block_rows_read()
+            items0 = cuda_seed.softcap_launches_by_items()
             got = kern(args)
             torch.cuda.synchronize()
             bad, err = max_err(got, plain(args))
             extra = ""
+            if name == "softcap_compact":
+                items1 = cuda_seed.softcap_launches_by_items()
+                took = [e for e in items1 if items1[e] != items0[e]]
+                want = got[0].shape[1] // 32
+                extra = f"; {want} columns a lane"
+                assert took == [want], (label, took, want)
             if name == "cluster_topc":
                 took = cuda_seed.block_rows_read() - rows0
                 over = seed_counts(args[0])["over_t"]
@@ -829,16 +977,16 @@ def phase_seed_kernels(mapper, reads):
             **bound(nbytes, ops), mismatches=bad_all, max_abs_err=err_all,
             shape="x".join(str(d) for d in args[0].shape))
     out["cluster_topc"]["seed_counts"] = dist
-    return out, (cl_in, key)
+    out["softcap_compact"]["kept_counts"] = kept
+    return out, (sc_in, cl_in, key)
 
 
-def load_parent_seed(root):
-    """The ops.cuda_seed module of the vg_tpu_torch package under `root`,
-    imported as the package parent_vg_tpu_torch (it builds its own
-    kernels from its own sources)."""
+def load_parent(root):
+    """The ops.cuda_seed and ops.cuda_align modules of the vg_tpu_torch
+    package under `root`, imported as the package parent_vg_tpu_torch
+    (they build their own kernels from their own sources)."""
     import importlib
     import importlib.util
-    import pathlib
 
     pkg = pathlib.Path(root).resolve() / "vg_tpu_torch"
     spec = importlib.util.spec_from_file_location(
@@ -847,31 +995,44 @@ def load_parent_seed(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_vg_tpu_torch"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("parent_vg_tpu_torch.ops.cuda_seed")
+    return (importlib.import_module("parent_vg_tpu_torch.ops.cuda_seed"),
+            importlib.import_module("parent_vg_tpu_torch.ops.cuda_align"))
 
 
-def phase_compare_parent(root, inputs, B, C, card):
-    """The parent tree's cluster_topc and argsort_i32 against this tree's
-    on the main path's inputs: the same outputs, then device and enqueue
-    times in turns (parent, this, this, parent)."""
-    from vg_tpu_torch.ops import cuda_seed
+def phase_compare_parent(root, seed_inputs, dp_inputs, sf, B, C, card):
+    """The parent tree's softcap_compact, cluster_topc, argsort_i32 and
+    packed banded DP against this tree's on the main path's inputs: the
+    same outputs, then device and enqueue times in turns (parent, this,
+    this, parent)."""
+    from vg_tpu_torch.ops import cuda_align, cuda_seed
 
-    cl_in, key = inputs
-    par = load_parent_seed(root)
+    sc_in, cl_in, key = seed_inputs
+    packed, T, t = dp_inputs
+    par_seed, par_align = load_parent(root)
     t0 = time.time()
-    par.library()
-    log(f"parent seed_kernels.cu built in {time.time() - t0:.1f} s from "
-        f"{root}")
-    fns = {"cluster_topc": lambda m: m.cluster_topc(
+    par_seed.library()
+    par_align.library()
+    log(f"parent seed_kernels.cu and banded_dp.cu built in "
+        f"{time.time() - t0:.1f} s from {root}")
+    for info in (par_align.build_info, par_seed.build_info):
+        for line in info.get("ptxas", "").splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log("  parent ptxas: " + line.strip())
+    mods = {"parent": (par_seed, par_align), "this": (cuda_seed, cuda_align)}
+    fns = {"softcap_compact": lambda m: m[0].softcap_compact(
+               *sc_in, score_fraction=sf),
+           "cluster_topc": lambda m: m[0].cluster_topc(
                *cl_in, band_radius=B, max_candidates=C),
-           "argsort_i32": lambda m: (m.argsort_i32(key),)}
+           "argsort_i32": lambda m: (m[0].argsort_i32(key),),
+           "banded_dp": lambda m: (m[1].banded_scores_packed(
+               packed, T, *t, band_radius=B),)}
     res = {}
     for name, fn in fns.items():
-        bad, _ = max_err(fn(par), fn(cuda_seed))
+        bad, _ = max_err(fn(mods["parent"]), fn(mods["this"]))
         assert bad == 0, f"{name}: parent and this tree differ on {bad}"
         runs = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
-            m = par if who == "parent" else cuda_seed
+            m = mods[who]
             dev_ms, ahead = device_ms(lambda: fn(m), 20)
             runs[who].append(dict(ms=dev_ms, ahead=ahead,
                                   enqueue_ms=cuda_ms(lambda: fn(m), 20)))
@@ -985,7 +1146,7 @@ def phase_dp_entries(text, real_batches):
     each also equals the packed kernel's scores on the same slots. Times
     and bounds on the main path's first batch. Returns each entry's
     numbers and the launches of its checks (the timing runs apart)."""
-    from vg_tpu_torch.ops import align, cuda_align
+    from vg_tpu_torch.ops import align, cuda_align, dp_cases
 
     dev = torch.device("cuda")
     T = len(text)
@@ -995,6 +1156,9 @@ def phase_dp_entries(text, real_batches):
     cases = [("main path batch 0", BAND, real_batches[0])] + [
         (f"adversarial R=1024 B={b}", b, adversarial_batch(rng, text, 1024,
                                                            B=b))
+        for b in (8, 12, BAND)] + [
+        (f"valid-slot patterns R=1024 B={b}", b,
+         dp_cases.block_case(rng, R=1024, B=b, text=text)[1:])
         for b in (8, 12, BAND)]
     put = lambda arrs: [torch.as_tensor(np.ascontiguousarray(x), device=dev)
                         for x in arrs]
@@ -1269,8 +1433,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace one more pass of each paired stream")
     ap.add_argument("--compare-parent", metavar="DIR",
-                    help="time another checkout's seeding kernels against "
-                         "this tree's on the main path's inputs")
+                    help="time another checkout's kernels against this "
+                         "tree's on the main path's inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke run "
@@ -1280,6 +1444,7 @@ def main(argv=None) -> int:
     t_start = time.time()
     card = phase_environment()
     phase_build()
+    phase_int_pipes(card)
     bs = BATCH
     haps, idx, mem, pairs, truth = build_fixture(
         args.seed, args.ref_mbp, bs * (N_BATCHES + 1))
@@ -1300,7 +1465,8 @@ def main(argv=None) -> int:
     kern = phase_kernel(haps.text, real)
     for name, k in kern["timed"].items():
         log(f"banded_dp at {k['shape']}, {name} ({k['valid']} valid "
-            f"slots): {timing_text(k)} on {card}")
+            f"slots of {k['slots']}, {100 * k['valid'] / k['slots']:.2f}%): "
+            f"{timing_text(k)} on {card}")
     seedk, seed_inputs = phase_seed_kernels(
         probe, [p[0] for p in pairs[bs : 2 * bs]])
     for name, k in seedk.items():
@@ -1308,10 +1474,12 @@ def main(argv=None) -> int:
             f"on {card}")
     if args.compare_parent:
         phase_compare_parent(args.compare_parent, seed_inputs,
+                             kern["main_inputs"], probe.params.score_fraction,
                              probe.params.band_radius,
                              probe.params.max_candidates, card)
     del probe, seed_inputs
     main_k = kern["timed"]["main path batch 0"]
+    del kern["main_inputs"]
     entries = phase_dp_entries(haps.text, real)
     step_launches = phase_byte_step(haps, mates)
     entries["banded_dp_bytes"]["check_launches"] += step_launches
@@ -1320,9 +1488,16 @@ def main(argv=None) -> int:
             f"{k['check_launches']} launches in its checks on {card}")
 
     # host-seeded main path, then single-end and the card-vs-CPU step
+    from vg_tpu_torch.ops import cuda_align
+
+    routes0 = cuda_align.launches_by_route()
     pm, host_recs, res = phase_main_path(haps, idx, mem, pairs, truth, bs,
                                          N_BATCHES)
     log_path("main path, host seeding", res, card)
+    routes = {b: n - routes0[b]
+              for b, n in cuda_align.launches_by_route().items()}
+    log(f"banded_dp routes on the host-seeded path: {json.dumps(routes)}")
+    assert routes == {16: res["launches"]["banded_dp"], 32: 0}, routes
     assert res["launches"]["banded_dp"] > 0, \
         "the main path never launched the kernel"
     assert res["stream_launches"]["banded_dp"] >= 2 * N_BATCHES

@@ -13,7 +13,7 @@ from vg_tpu.ops import align as jax_align
 from vg_tpu.ops.pallas_align import banded_scores_pallas
 from vg_tpu.ops.pallas_align import pack_text as jax_pack_text
 from vg_tpu_torch.ops import align as t_align
-from vg_tpu_torch.ops import cuda_align
+from vg_tpu_torch.ops import cuda_align, dp_cases
 
 from test_torch_kernel import dp_batch, torch_args
 
@@ -200,3 +200,32 @@ def test_windows_entry_takes_whole_lanes_only():
         cuda_align.banded_scores_windows(*torch_args((win[:100], rd[:100],
                                                       rl[:100])),
                                          band_radius=8)
+
+
+@pytest.mark.parametrize("B", [8, 16])
+def test_block_cases_equal_jax(B):
+    """dp_cases.block_case (blocks of slots all valid, none, one, every
+    other one, a random half; reads of rlen 0 and 2-base indels): the
+    packed and byte-text plain versions against the XLA scan and against
+    1c's windows through the Pallas kernel in interpret mode; the windows
+    entry's plain version against banded_scores_pallas on the same slots
+    (invalid slots given rlen 0)."""
+    args = dp_cases.block_case(np.random.default_rng(70 + B), R=80, C=8,
+                               RL=64, B=B, T=6000, L=60)
+    want = jax_scores(args, B)
+    packed = torch.from_numpy(cuda_align.pack_text(args[0]))
+    got = cuda_align.banded_scores_packed(
+        packed, len(args[0]), *torch_args(args[1:]), band_radius=B).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        cuda_align.banded_scores_bytes(*torch_args(args),
+                                       band_radius=B).numpy(), want)
+    np.testing.assert_array_equal(got, pallas_1c(args, B))
+    win, rd, rl = dp_cases.windows_of(args, B)
+    want_w = np.asarray(banded_scores_pallas(
+        jnp.asarray(win), jnp.asarray(rd), jnp.asarray(rl), band_radius=B,
+        interpret=True))
+    got_w = cuda_align.banded_scores_windows(
+        *torch_args((win, rd, rl)), band_radius=B).numpy()
+    np.testing.assert_array_equal(got_w, want_w)
+    np.testing.assert_array_equal(got_w, np.maximum(want.reshape(-1), 0))

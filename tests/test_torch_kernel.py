@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from vg_tpu_torch.ops import align as t_align
-from vg_tpu_torch.ops import cuda_align
+from vg_tpu_torch.ops import cuda_align, dp_cases
 
 COMP = np.array([3, 2, 1, 0, 4, 5], np.uint8)
 # The suite runs in several worker processes at once: torch's intra-op
@@ -113,13 +113,16 @@ def test_cpu_tensors_launch_nothing():
 
 
 def test_dp_work_counts_valid_rows():
-    """bytes: every input once, the output once; operations: OPS_PER_CELL
-    for each band cell of each valid candidate's rows."""
+    """bytes: every input once, the output once; operations: 4.25
+    instructions (the 16x2 DPX cell) for each band cell of each valid
+    candidate's rows."""
     reads = torch.zeros((2, 10), dtype=torch.uint8)
     rlen = torch.tensor([10, 4], dtype=torch.int32)
     valid = torch.tensor([[True, False, True], [True, True, False]])
     nbytes, ops = cuda_align.dp_work(reads, rlen, valid, 100, 8)
-    assert ops == cuda_align.OPS_PER_CELL * 17 * (10 * 2 + 4 * 2)
+    assert cuda_align.OPS_PER_CELL == 4.25
+    assert ops == 2023 == 4.25 * 17 * (10 * 2 + 4 * 2)
+    assert isinstance(ops, int)
     assert nbytes == 400 + 2 * 20 + 8 + 6 * 14 + 6 * 4
 
 
@@ -193,14 +196,14 @@ def test_dp_work_of_each_source():
     valid = torch.tensor([[True, False, True], [True, True, False]])
     nbytes, ops = cuda_align.dp_work(reads, rlen, valid, 100, 8,
                                      source="bytes")
-    assert ops == cuda_align.OPS_PER_CELL * 17 * (10 * 2 + 4 * 2)
+    assert ops == 2023
     assert nbytes == 100 + 2 * 20 + 8 + 6 * 14 + 6 * 4
     wreads = torch.zeros((128, 10), dtype=torch.uint8)
     wrlen = torch.zeros(128, dtype=torch.int32)
     wrlen[:3] = torch.tensor([10, 20, 4], dtype=torch.int32)
     nbytes, ops = cuda_align.dp_work(wreads, wrlen, None, 128 * 26, 8,
                                      source="windows")
-    assert ops == cuda_align.OPS_PER_CELL * 17 * (10 + 16 + 4)
+    assert ops == 2168 == round(4.25 * 17 * (10 + 16 + 4))
     assert nbytes == 128 * 26 + 128 * 10 + 4 * 128 + 4 * 128
 
 
@@ -232,6 +235,112 @@ def test_window_entry_equals_plain_version_on_card(cuda_device, B):
     assert cuda_align.banded_scores_windows.launches == before + 1
     want = cuda_align.banded_scores_windows_ref(win, rd, rl, band_radius=B)
     assert torch.equal(got, want)
+
+
+def test_block_cases_hold_each_valid_pattern():
+    """dp_cases.block_valid: block by block of BLOCK_SLOTS slots, all
+    valid, none, exactly one, every other one, about half."""
+    rng = np.random.default_rng(2)
+    valid = dp_cases.block_valid(rng, 200, 8).reshape(-1)
+    counts = [int(valid[s : s + 128].sum()) for s in range(0, 1600, 128)]
+    assert counts[:10] == [128, 0, 1, 64, counts[4], 128, 0, 1, 64,
+                           counts[9]]
+    assert 30 < counts[4] < 98 and counts[-1] == valid[1536:].sum()
+    np.testing.assert_array_equal(valid[384:512], np.arange(128) % 2 == 0)
+    np.testing.assert_array_equal(valid[1024:1152], np.arange(128) % 2 == 1)
+    args = dp_cases.block_case(rng, R=40, C=8, RL=64, T=4000, L=60)
+    win, rd, rl = dp_cases.windows_of(args, 16)
+    assert win.shape == (320, 96) and rd.shape == (320, 64)
+    assert (rl[~args[-1].reshape(-1)] == 0).all()
+    assert (args[3] == 0).any() and (rl[args[-1].reshape(-1)] == 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [8, 12, 16])
+def test_entries_exact_on_valid_patterns_on_card(cuda_device, B):
+    """Blocks with every slot valid, none, one, every other one and a
+    random half, reads of rlen 0 among them: the packed, byte-text and
+    windows entries against their plain versions."""
+    args = dp_cases.block_case(np.random.default_rng(60 + B), R=1024, B=B,
+                               T=200_000)
+    t = [x.to(cuda_device) for x in torch_args(args)]
+    packed = torch.from_numpy(cuda_align.pack_text(args[0])).to(cuda_device)
+    T = len(args[0])
+    got = cuda_align.banded_scores_packed(packed, T, *t[1:], band_radius=B)
+    got_b = cuda_align.banded_scores_bytes(*t, band_radius=B)
+    win, rd, rl = [x.to(cuda_device)
+                   for x in torch_args(dp_cases.windows_of(args, B))]
+    got_w = cuda_align.banded_scores_windows(win, rd, rl, band_radius=B)
+    torch.cuda.synchronize()
+    want = cuda_align.banded_scores_packed_ref(packed, T, *t[1:],
+                                               band_radius=B)
+    assert torch.equal(got, want)
+    assert torch.equal(got_b, t_align.banded_scores(*t, band_radius=B))
+    assert torch.equal(got_w, cuda_align.banded_scores_windows_ref(
+        win, rd, rl, band_radius=B))
+    assert torch.equal(got_w, want.reshape(-1).clamp_min(0))
+
+
+SCORINGS = {   # (kwargs, route)
+    "path": (dict(), 16),
+    "other 16-bit": (dict(match=2, mismatch=3, gap_open=5, gap_extend=2,
+                          bonus=0), 16),
+    "open below extend": (dict(gap_open=2, gap_extend=3), 16),
+    "int32 (bonus 17000)": (dict(bonus=17000), 32),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(SCORINGS))
+def test_route_taken_and_exact_on_card(cuda_device, kind):
+    """Each scoring takes its route (counted by the library): int32 only
+    where a value could leave int16 (csrc/banded_dp.cu fits16: here the
+    bonus); the three entries equal their plain versions on it."""
+    kw, route = SCORINGS[kind]
+    B = 12
+    args = dp_batch(80, B, R=256, C=8, RL=160, T=100_000)
+    t = [x.to(cuda_device) for x in torch_args(args)]
+    packed = torch.from_numpy(cuda_align.pack_text(args[0])).to(cuda_device)
+    T = len(args[0])
+    win, rd, rl = [x.to(cuda_device) for x in torch_args(
+        windows_from(args, B, over_seed=3))]
+    before = cuda_align.launches_by_route()
+    got = cuda_align.banded_scores_packed(packed, T, *t[1:], band_radius=B,
+                                          **kw)
+    got_b = cuda_align.banded_scores_bytes(*t, band_radius=B, **kw)
+    got_w = cuda_align.banded_scores_windows(win, rd, rl, band_radius=B,
+                                             **kw)
+    torch.cuda.synchronize()
+    after = cuda_align.launches_by_route()
+    assert {b: after[b] - before[b] for b in after} == {
+        16: 3 * (route == 16), 32: 3 * (route == 32)}
+    assert torch.equal(got, cuda_align.banded_scores_packed_ref(
+        packed, T, *t[1:], band_radius=B, **kw))
+    assert torch.equal(got_b, t_align.banded_scores(*t, band_radius=B, **kw))
+    assert torch.equal(got_w, cuda_align.banded_scores_windows_ref(
+        win, rd, rl, band_radius=B, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [6144, 20000])
+def test_entries_exact_with_wide_blocks_on_card(cuda_device, R):
+    """Batches that give the 16x2 kernel 384-slot and 1,024-slot blocks
+    (R x 8 slots over the card's SMs), reads of rlen 0 and short reads in
+    them."""
+    args = dp_cases.block_case(np.random.default_rng(R), R=R, B=16,
+                               T=300_000)
+    t = [x.to(cuda_device) for x in torch_args(args)]
+    packed = torch.from_numpy(cuda_align.pack_text(args[0])).to(cuda_device)
+    T = len(args[0])
+    got = cuda_align.banded_scores_packed(packed, T, *t[1:], band_radius=16)
+    win, rd, rl = [x.to(cuda_device)
+                   for x in torch_args(dp_cases.windows_of(args, 16))]
+    got_w = cuda_align.banded_scores_windows(win, rd, rl, band_radius=16)
+    torch.cuda.synchronize()
+    want = cuda_align.banded_scores_packed_ref(packed, T, *t[1:],
+                                               band_radius=16)
+    assert torch.equal(got, want)
+    assert torch.equal(got_w, want.reshape(-1).clamp_min(0))
 
 
 @pytest.mark.gpu

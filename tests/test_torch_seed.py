@@ -56,6 +56,30 @@ def test_softcap_compact_equals_vg_tpu():
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+def assert_softcap_equal(args, sf):
+    want = pallas_seed.softcap_compact(*args, score_fraction=sf)
+    got = cuda_seed.softcap_compact(*(t(a) for a in args),
+                                    score_fraction=sf)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("kind,sf", [("kept", 0.9), ("sign", 0.9),
+                                     ("budget", 0.5)])
+def test_softcap_compact_equals_vg_tpu_on_edge_rows(kind, sf):
+    """Rows of 31-33 and 63-65 kept columns; zeros of either sign and
+    negative scores (the order puts them after the positive scores, as
+    float compares rank -0.0 with 0.0); exclusive sums equal to the
+    budget at an expensive column (the strict < leaves it)."""
+    rng = np.random.default_rng(30)
+    args = {"kept": lambda: seed_cases.softcap_kept_case(rng),
+            "sign": lambda: seed_cases.softcap_sign_case(rng, 24),
+            "budget": lambda: seed_cases.softcap_budget_case(rng, 24)}[kind]()
+    assert_softcap_equal(args, sf)
+
+
 def cluster_inputs(rng, R, S, B):
     """tests/test_pallas_seed.py's generator: seeds around a few diagonal
     hotspots, duplicate read offsets, quantized scores."""

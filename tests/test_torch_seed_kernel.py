@@ -92,11 +92,86 @@ def test_plain_softcap_takes_taken_first_in_column_order():
     assert int(take[0::7].sum()) == 0                 # nothing kept
 
 
+def test_kept_case_holds_the_counts():
+    args = seed_cases.softcap_kept_case(np.random.default_rng(4))
+    np.testing.assert_array_equal(args[1].sum(1),
+                                  np.repeat(seed_cases.SOFTCAP_KEPT, 2))
+    assert (args[0][args[1]] >= 1).all() and (args[0][~args[1]] == 0).all()
+
+
+def test_sign_case_has_signed_zeros_and_negative_scores():
+    ms, keep = seed_cases.softcap_sign_case(np.random.default_rng(5), 24)[:2]
+    zero = ms == 0
+    assert (zero & np.signbit(ms)).any() and (zero & ~np.signbit(ms)).any()
+    assert (keep & (ms < 0)).any() and (keep & zero).any()
+    assert not (ms[2::3] > 0).any()
+
+
+def test_budget_case_meets_the_budget_exactly():
+    """At score_fraction 0.5 the first X / 4 column's exclusive sum equals
+    the budget, so the plain version takes exactly the X columns; a <=
+    would take one more in every nonempty row."""
+    args = seed_cases.softcap_budget_case(np.random.default_rng(6), 24)
+    ms, keep = args[0], args[1]
+    out = cuda_seed.softcap_compact(*tensors(args), score_fraction=0.5)
+    take = out[5].numpy()
+    big = (ms >= 2.25).sum(1)
+    assert (big > 0).all()
+    np.testing.assert_array_equal(take.sum(1), big)
+    half = np.float32(0.5) * ms.sum(1, dtype=np.float32)
+    np.testing.assert_array_equal(half, np.where(ms >= 2.25, ms, 0).sum(1))
+    assert (keep.sum(1) == 5 * big).all()
+
+
 def test_cluster_work_counts_valid_seeds():
     strandk = torch.tensor([[0, 2, 1, 2], [2, 2, 2, 2]], dtype=torch.int32)
     nbytes, ops = cuda_seed.cluster_work(strandk, 8)
     assert nbytes == 4 * 8 + 12 * 2 + 2 * 8 * 9
     assert ops == 2 * 2 * 1 + (12 + 8) * 2
+
+
+SOFTCAP_CASES = {
+    "kept": (lambda rng: seed_cases.softcap_kept_case(rng), 0.9),
+    "sign": (lambda rng: seed_cases.softcap_sign_case(rng, 96), 0.9),
+    "sign m=600": (lambda rng: seed_cases.softcap_sign_case(rng, 40, 600),
+                   0.7),
+    "budget": (lambda rng: seed_cases.softcap_budget_case(rng, 96), 0.5),
+}
+
+
+def assert_softcap_exact(args, sf):
+    before = cuda_seed.softcap_compact.launches
+    got = cuda_seed.softcap_compact(*args, score_fraction=sf)
+    torch.cuda.synchronize()
+    assert cuda_seed.softcap_compact.launches == before + 1
+    want = cuda_seed.softcap_compact_ref(*args, score_fraction=sf)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", seed_cases.SOFTCAP_WIDTHS)
+def test_softcap_kernel_exact_at_each_width(cuda_device, m):
+    """Every mpad (128 to 1024: 4 to 32 columns a lane) and both sides of
+    each power of two; the entry takes the instantiation of mpad / 32."""
+    items = cuda_seed.pow2_ge(max(m, 128)) // 32
+    args = tensors(seed_cases.softcap_case(np.random.default_rng(m), 150, m),
+                   cuda_device)
+    n0 = cuda_seed.softcap_launches_by_items()
+    assert_softcap_exact(args, 0.9)
+    n1 = cuda_seed.softcap_launches_by_items()
+    assert {e: n1[e] - n0[e] for e in n1} == {
+        e: int(e == items) for e in n1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(SOFTCAP_CASES))
+def test_softcap_kernel_exact_on_edge_rows(cuda_device, kind):
+    """Rows of 31-33 and 63-65 kept columns, zeros of either sign,
+    negative scores, and the exclusive sum equal to the budget."""
+    make, sf = SOFTCAP_CASES[kind]
+    assert_softcap_exact(tensors(make(np.random.default_rng(8)),
+                                 cuda_device), sf)
 
 
 @pytest.mark.gpu

@@ -2,7 +2,7 @@
 // and a stable argsort. Bound with ctypes through ops/cuda_seed.py.
 //
 // Replaces the three Pallas TPU kernels of vg_tpu/ops/pallas_seed.py:
-//   softcap_kernel          <- _softcap_kernel (:195), reached via
+//   softcap_warp_kernel     <- _softcap_kernel (:195), reached via
 //                              softcap_compact (:234, pallas_call :261)
 //   cluster_warp_kernel +   <- _cluster_kernel (:275), reached via
 //   cluster_block_kernel       cluster_topc (:357, pallas_call :384)
@@ -12,21 +12,44 @@
 // networks because Mosaic needs static shapes. Here each row works on what
 // it holds:
 //
-// softcap_kernel: one block of mpad threads per read, one thread per
-//   minimizer column. A thread finds its column's place in the order
-//   (score descending, column ascending) by counting the columns before
-//   it (mpad compares against a shared-memory broadcast), the cheap and
-//   expensive scores are laid out in that order and scanned with the
-//   Hillis-Steele tree of vg_tpu's _prefix_sum (so every float sum is
-//   the reference's, term for term), and take = keep & (cheap |
-//   excl_cheap + excl_expensive < score_fraction * total) is decided with
-//   float32 arithmetic only (__fmul_rn/__fadd_rn: no contraction, no
-//   double promotion). The compaction (taken columns first, then the
-//   rest, each in column order) is an integer scan over the take flags.
-//   The total is a tree sum; on the path the scores are multiples of
-//   1/256 from the quantized score table, so every sum is exact in any
-//   order. Bound: bytes (six (R, mpad) outputs are 6x the inputs' words);
-//   the quadratic ranking keeps it at a tenth of that bound.
+// softcap_warp_kernel: one warp a read, 8 reads a 256-thread block, E =
+//   mpad / 32 columns a lane (4, 8, 16 or 32: the entry picks the
+//   instantiation from mpad and counts its launches). What held the first
+//   design (a 256-thread block a read) to a tenth of its bytes bound: each
+//   thread ranked its column against all mpad columns (quadratic), and a
+//   row waited at 56 block barriers. Here:
+//   - load: the warp reads its row in 32-column steps (coalesced 4-byte
+//     and 1-byte loads), sums it, and splits it with two ballots a step:
+//     columns of nonzero score get a 64-bit key, float_order(-score) << 32
+//     | (column << 2 | cheap << 1 | keep), in column order; zero columns
+//     (either sign; padding columns past m are zeros) get their record in
+//     column order. The order (score descending, column ascending, as
+//     float compares rank it) is then the sorted positive keys, the zero
+//     columns as they stand, and the sorted negative keys: only the
+//     nonzero keys are sorted, a bitonic sort of the next power of two in
+//     the warp's slice of shared memory with __syncwarp between steps. On
+//     the path every kept score is >= 1 and every other score is 0
+//     (ops/devseed.softcap_inputs), so the sort covers the kept columns.
+//   - sums: the cheap and expensive scores, in sorted order and striped
+//     (position lane + 32 q), are scanned in registers with the
+//     Hillis-Steele tree of vg_tpu's _prefix_sum (step d adds x[p - d];
+//     one shuffle an item for d < 32, an in-lane add above), up to the
+//     last kept position only. The row total is each lane's sum in column
+//     order, then a butterfly: another order than vg_tpu's jnp.sum, exact
+//     on the path's 1/256-quantized scores, as the first design's tree
+//     was. take = keep & (cheap | excl_cheap + excl_expensive <
+//     score_fraction * total) in float32 only (__fmul_rn, __fadd_rn, the
+//     strict <).
+//   - compaction: take flags go to their columns in shared memory; ballots
+//     over the columns give each its slot (taken: the taken columns
+//     before it; otherwise ntake + c - that count); the slot -> column
+//     map is written to shared memory and the six (R, mpad) outputs are
+//     stored in slot order, 32 neighbouring slots a warp-store.
+//   No block barrier: a row needs none. Shared memory 11 mpad bytes a row
+//   (22,528 B a block at mpad = 256, 90,112 B at mpad = 1024, set once a
+//   device). ptxas: 48 registers at E = 8 (the path's), 32 at E = 4, no
+//   spills; 80 registers and 12 B spilled at E = 16, 128 at E = 32. Bound:
+//   bytes, the six outputs 72% of them at the path's shape.
 //
 // cluster top-C: one wrapper call is two launches on one stream.
 //   The row body (cluster_row) is run by a thread group, a whole block or
@@ -231,74 +254,219 @@ __device__ __forceinline__ int32_t unbiased(uint64_t x) {
 
 // ------------------------------------------------------ soft-cap select
 
-__global__ void softcap_kernel(const float* __restrict__ ms,
-                               const uint8_t* __restrict__ keep,
-                               const uint8_t* __restrict__ cheap,
-                               const int32_t* __restrict__ hs,
-                               const int32_t* __restrict__ cnt,
-                               const int32_t* __restrict__ cr, int m,
-                               float score_fraction,
-                               int32_t* __restrict__ pos_o,
-                               int32_t* __restrict__ hs_o,
-                               int32_t* __restrict__ cnt_o,
-                               int32_t* __restrict__ cr_o,
-                               float* __restrict__ ms_o,
-                               int32_t* __restrict__ take_o) {
-  extern __shared__ float sm[];
-  const BlockGroup g{};
-  const int mpad = blockDim.x;
-  float* s_ms = sm;              // scores by column
-  float* s_c = sm + mpad;        // cheap scores, in sorted order
-  float* s_e = sm + 2 * mpad;    // expensive scores, in sorted order
-  float* s_sum = sm + 3 * mpad;  // tree sum of the row's scores
-  int* s_t = reinterpret_cast<int*>(sm + 4 * mpad);  // take, by column
-  const int c = threadIdx.x;
-  const long long in = (long long)blockIdx.x * m + c;
-  float v = 0.0f;
-  bool kp = false, ch = false;
-  if (c < m) {
-    v = ms[in];
-    kp = keep[in] != 0;
-    ch = cheap[in] != 0;
+constexpr int kSoftcapRows = 8;        // rows (warps) a block
+
+// Shared memory of one row of mpad columns: the sort keys of its nonzero
+// columns (8 B each; later the slot -> column map), the records of its zero
+// columns (2 B) and the take flag of each column (1 B).
+__host__ __device__ constexpr int softcap_row_bytes(int mpad) {
+  return 11 * mpad;
+}
+
+// Order-preserving bits of a float: ascending floats, ascending bits.
+__device__ __forceinline__ uint32_t float_order(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float order_float(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// One warp a row, E = mpad / 32 columns a lane, striped (column or
+// position lane + 32 q). A column's record is (column << 2 | cheap << 1 |
+// keep); a nonzero column's sort key is float_order(-score) << 32 | record.
+template <int E>
+__global__ void __launch_bounds__(kSoftcapRows * 32)
+softcap_warp_kernel(const float* __restrict__ ms,
+                    const uint8_t* __restrict__ keep,
+                    const uint8_t* __restrict__ cheap,
+                    const int32_t* __restrict__ hs,
+                    const int32_t* __restrict__ cnt,
+                    const int32_t* __restrict__ cr, int R, int m,
+                    float score_fraction, int32_t* __restrict__ pos_o,
+                    int32_t* __restrict__ hs_o, int32_t* __restrict__ cnt_o,
+                    int32_t* __restrict__ cr_o, float* __restrict__ ms_o,
+                    int32_t* __restrict__ take_o) {
+  constexpr int M = 32 * E;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kSoftcapRows + warp;
+  if (row >= R) return;
+  unsigned char* base = smem_raw + warp * softcap_row_bytes(M);
+  uint64_t* key = reinterpret_cast<uint64_t*>(base);
+  uint16_t* zrec = reinterpret_cast<uint16_t*>(base + 8 * M);
+  uint8_t* tk = base + 10 * M;
+  uint16_t* inv = reinterpret_cast<uint16_t*>(base);  // after the keys
+  const unsigned lt = (1u << lane) - 1u;
+  const long long in0 = row * m;
+  const WarpGroup g{};
+
+  // Load the row (coalesced: a warp reads 32 neighbouring columns), sum
+  // it, and split it by ballots: nonzero columns keyed in column order,
+  // zero columns recorded in column order.
+  float tot = 0.0f;
+  int nnz = 0, npos = 0;
+  {
+    float v[E];
+    uint32_t rec[E];
+    unsigned bnz[E];
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      const int c = lane + 32 * q;
+      float x = 0.0f;
+      uint32_t f = 0;
+      if (c < m) {
+        x = ms[in0 + c];
+        f = (keep[in0 + c] != 0 ? 1u : 0u) | (cheap[in0 + c] != 0 ? 2u : 0u);
+      }
+      v[q] = x;
+      rec[q] = ((uint32_t)c << 2) | f;
+      tot = __fadd_rn(tot, x);
+      bnz[q] = __ballot_sync(kFull, x != 0.0f);   // -0.0 is a zero
+      npos += __popc(__ballot_sync(kFull, x > 0.0f));
+    }
+#pragma unroll
+    for (int q = 0; q < E; ++q) {
+      const int before = __popc(bnz[q] & lt);
+      if ((bnz[q] >> lane) & 1u) {
+        key[nnz + before] =
+            ((uint64_t)float_order(-v[q]) << 32) | rec[q];
+      } else {
+        zrec[(32 * q - nnz) + (lane - before)] = (uint16_t)rec[q];
+      }
+      nnz += __popc(bnz[q]);
+    }
   }
-  s_ms[c] = v;
-  s_sum[c] = v;
-  __syncthreads();
-  // place in the order (score descending, column ascending); float
-  // compares, so -0.0 and 0.0 tie
-  int rank = 0;
-  for (int d = 0; d < mpad; ++d) {
-    const float u = s_ms[d];
-    rank += (u > v) || (u == v && d < c);
+  // the row total: lane sums in column order, then a butterfly (every
+  // lane ends with the same bits: float addition commutes)
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    tot = __fadd_rn(tot, __shfl_xor_sync(kFull, tot, off));
+  const int nzero = M - nnz;
+
+  // Sort the nonzero keys: positive scores come first (descending, then
+  // by column), negative ones last; the zero columns go between them.
+  int np2 = 1;
+  while (np2 < nnz) np2 <<= 1;
+  for (int p = nnz + lane; p < np2; p += 32) key[p] = ~0ull;
+  __syncwarp();
+  if (nnz > 1) bitonic_sort(g, key, np2);
+
+  // the record and score of sorted position p
+  auto item = [&](int p, uint32_t& r, float& x) {
+    if (p < npos || p >= npos + nzero) {
+      const uint64_t k = key[p < npos ? p : p - nzero];
+      r = (uint32_t)k;
+      x = -order_float((uint32_t)(k >> 32));
+    } else {
+      r = zrec[p - npos];
+      x = 0.0f;
+    }
+  };
+
+  // Cheap and expensive scores in sorted order; P = 1 + the last kept
+  // position: no later position is read.
+  float cs[E], es[E];
+  int P = 0;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int p = lane + 32 * q;
+    uint32_t r;
+    float x;
+    item(p, r, x);
+    const bool kp = r & 1u, ch = r & 2u;
+    cs[q] = kp && ch ? x : 0.0f;
+    es[q] = kp && !ch ? x : 0.0f;
+    if (kp) P = p + 1;
   }
-  const float cv = (kp && ch) ? v : 0.0f;
-  const float ev = (kp && !ch) ? v : 0.0f;
-  s_c[rank] = cv;
-  s_e[rank] = ev;
-  for (int s = mpad >> 1; s > 0; s >>= 1) {
-    __syncthreads();
-    if (c < s) s_sum[c] = __fadd_rn(s_sum[c], s_sum[c + s]);
+  P = __reduce_max_sync(kFull, P);
+
+  // Inclusive Hillis-Steele scans with the tree of vg_tpu's _prefix_sum:
+  // step d adds x[p - d] to x[p] (0 below d). Position lane + 32 q takes
+  // p - d from lane - d of item q, or of item q - 1 for lane < d; for
+  // d >= 32, item q - d / 32 of its own lane.
+#pragma unroll
+  for (int lg = 0; (1 << lg) < M; ++lg) {
+    const int d = 1 << lg;
+    if (d >= P) break;
+    if (d < 32) {
+      const int src = (lane - d) & 31;
+      float pc = 0.0f, pe = 0.0f;        // item q - 1 of lane - d
+#pragma unroll
+      for (int q = 0; q < E; ++q) {
+        if (32 * q >= P) break;
+        const float yc = __shfl_sync(kFull, cs[q], src);
+        const float ye = __shfl_sync(kFull, es[q], src);
+        cs[q] = __fadd_rn(cs[q], lane >= d ? yc : pc);
+        es[q] = __fadd_rn(es[q], lane >= d ? ye : pe);
+        pc = yc;
+        pe = ye;
+      }
+    } else {
+      const int k = d >> 5;
+#pragma unroll
+      for (int q = E - 1; q >= 0; --q) {
+        if (32 * q < P) {
+          cs[q] = __fadd_rn(cs[q], q >= k ? cs[q >= k ? q - k : 0] : 0.0f);
+          es[q] = __fadd_rn(es[q], q >= k ? es[q >= k ? q - k : 0] : 0.0f);
+        }
+      }
+    }
   }
-  __syncthreads();
-  hs_scan<float, 1>(g, s_c, mpad);
-  hs_scan<float, 1>(g, s_e, mpad);
-  const float budget = __fmul_rn(score_fraction, s_sum[0]);
-  const float csum = __fsub_rn(s_c[rank], cv);   // taken-score totals
-  const float esum = __fsub_rn(s_e[rank], ev);   // before this item
-  const bool take = kp && (ch || __fadd_rn(csum, esum) < budget);
-  s_t[c] = take ? 1 : 0;
-  __syncthreads();
-  hs_scan<int, 1>(g, s_t, mpad);
-  const int before = s_t[c] - (take ? 1 : 0);    // taken columns < c
-  const int ntake = s_t[mpad - 1];
-  const int slot = take ? before : ntake + (c - before);
-  const long long out = (long long)blockIdx.x * mpad + slot;
-  pos_o[out] = c;
-  hs_o[out] = c < m ? hs[in] : 0;
-  cnt_o[out] = c < m ? cnt[in] : 0;
-  cr_o[out] = c < m ? cr[in] : 0;
-  ms_o[out] = v;
-  take_o[out] = take ? 1 : 0;
+
+  // take = keep & (cheap | excl_cheap + excl_expensive < fraction * total),
+  // float32 only; the flags go to their columns
+  const float budget = __fmul_rn(score_fraction, tot);
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int p = lane + 32 * q;
+    uint32_t r;
+    float x;
+    item(p, r, x);
+    const bool kp = r & 1u, ch = r & 2u;
+    bool take = false;
+    if (kp) {
+      const float csum = __fsub_rn(cs[q], ch ? x : 0.0f);
+      const float esum = __fsub_rn(es[q], ch ? 0.0f : x);
+      take = ch || __fadd_rn(csum, esum) < budget;
+    }
+    tk[r >> 2] = take ? 1 : 0;
+  }
+  __syncwarp();
+
+  // Compaction: taken columns first, then the rest, each in column order.
+  unsigned bt[E];
+  int ntake = 0;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    bt[q] = __ballot_sync(kFull, tk[lane + 32 * q] != 0);
+    ntake += __popc(bt[q]);
+  }
+  int taken = 0;                        // taken columns before chunk q
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int c = lane + 32 * q;
+    const int before = taken + __popc(bt[q] & lt);
+    inv[(bt[q] >> lane) & 1u ? before : ntake + c - before] = (uint16_t)c;
+    taken += __popc(bt[q]);
+  }
+  __syncwarp();
+
+  // the six outputs in slot order, coalesced
+  const long long out0 = row * M;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int p = lane + 32 * q;
+    const int c = inv[p];
+    const bool real = c < m;
+    pos_o[out0 + p] = c;
+    hs_o[out0 + p] = real ? hs[in0 + c] : 0;
+    cnt_o[out0 + p] = real ? cnt[in0 + c] : 0;
+    cr_o[out0 + p] = real ? cr[in0 + c] : 0;
+    ms_o[out0 + p] = real ? ms[in0 + c] : 0.0f;
+    take_o[out0 + p] = p < ntake ? 1 : 0;
+  }
 }
 
 // -------------------------------------------------------- cluster top-C
@@ -715,6 +883,7 @@ std::mutex g_setup_mutex;
 std::atomic<bool> g_ready[kMaxDevices];
 int g_sms[kMaxDevices];
 std::atomic<int> g_attr_sets{0};
+std::atomic<long long> g_softcap_launches[4];   // by log2(E) - 2
 
 cudaError_t raise_smem(const void* fn, long long bytes) {
   g_attr_sets.fetch_add(1);
@@ -742,7 +911,10 @@ cudaError_t prepare(int device) {
       || (e = raise_smem((const void*)argsort_kernel<8>,
                          argsort_smem(32, 8))) != cudaSuccess
       || (e = raise_smem((const void*)argsort_kernel<16>,
-                         argsort_smem(32, 16))) != cudaSuccess)
+                         argsort_smem(32, 16))) != cudaSuccess
+      || (e = raise_smem((const void*)softcap_warp_kernel<32>,
+                         kSoftcapRows * softcap_row_bytes(1024)))
+             != cudaSuccess)
     return e;
   e = cudaDeviceGetAttribute(&g_sms[device], cudaDevAttrMultiProcessorCount,
                              device);
@@ -781,16 +953,61 @@ extern "C" int seed_softcap(int device, const void* ms, const void* keep,
   if (R == 0) return (int)cudaSuccess;
   const cudaError_t set = prepare(device);
   if (set != cudaSuccess) return (int)set;
-  const size_t smem = 5 * sizeof(float) * (size_t)mpad;
-  softcap_kernel<<<R, mpad, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ms), static_cast<const uint8_t*>(keep),
-      static_cast<const uint8_t*>(cheap), static_cast<const int32_t*>(hs),
-      static_cast<const int32_t*>(cnt), static_cast<const int32_t*>(cr), m,
-      score_fraction, static_cast<int32_t*>(pos_o),
-      static_cast<int32_t*>(hs_o), static_cast<int32_t*>(cnt_o),
-      static_cast<int32_t*>(cr_o), static_cast<float*>(ms_o),
-      static_cast<int32_t*>(take_o));
-  return (int)cudaGetLastError();
+  const unsigned grid = (unsigned)((R + kSoftcapRows - 1) / kSoftcapRows);
+  const size_t smem = (size_t)kSoftcapRows * softcap_row_bytes(mpad);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* a0 = static_cast<const float*>(ms);
+  const auto* a1 = static_cast<const uint8_t*>(keep);
+  const auto* a2 = static_cast<const uint8_t*>(cheap);
+  const auto* a3 = static_cast<const int32_t*>(hs);
+  const auto* a4 = static_cast<const int32_t*>(cnt);
+  const auto* a5 = static_cast<const int32_t*>(cr);
+  auto* o0 = static_cast<int32_t*>(pos_o);
+  auto* o1 = static_cast<int32_t*>(hs_o);
+  auto* o2 = static_cast<int32_t*>(cnt_o);
+  auto* o3 = static_cast<int32_t*>(cr_o);
+  auto* o4 = static_cast<float*>(ms_o);
+  auto* o5 = static_cast<int32_t*>(take_o);
+  int route = 0;
+  switch (mpad) {
+    case 128:
+      softcap_warp_kernel<4><<<grid, kSoftcapRows * 32, smem, st>>>(
+          a0, a1, a2, a3, a4, a5, R, m, score_fraction, o0, o1, o2, o3, o4,
+          o5);
+      break;
+    case 256:
+      route = 1;
+      softcap_warp_kernel<8><<<grid, kSoftcapRows * 32, smem, st>>>(
+          a0, a1, a2, a3, a4, a5, R, m, score_fraction, o0, o1, o2, o3, o4,
+          o5);
+      break;
+    case 512:
+      route = 2;
+      softcap_warp_kernel<16><<<grid, kSoftcapRows * 32, smem, st>>>(
+          a0, a1, a2, a3, a4, a5, R, m, score_fraction, o0, o1, o2, o3, o4,
+          o5);
+      break;
+    default:
+      route = 3;
+      softcap_warp_kernel<32><<<grid, kSoftcapRows * 32, smem, st>>>(
+          a0, a1, a2, a3, a4, a5, R, m, score_fraction, o0, o1, o2, o3, o4,
+          o5);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) g_softcap_launches[route].fetch_add(1);
+  return (int)e;
+}
+
+// Launches of softcap_warp_kernel with `items` columns a lane (4, 8, 16 or
+// 32) so far; -1 for another count.
+extern "C" long long seed_softcap_launches(int items) {
+  switch (items) {
+    case 4: return g_softcap_launches[0].load();
+    case 8: return g_softcap_launches[1].load();
+    case 16: return g_softcap_launches[2].load();
+    case 32: return g_softcap_launches[3].load();
+    default: return -1;
+  }
 }
 
 // Most valid seeds a row may hold and stay on the warp path.

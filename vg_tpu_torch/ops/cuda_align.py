@@ -4,7 +4,10 @@ versions.
 The counterpart of vg_tpu/ops/pallas_align.py on the H100. One kernel
 body (csrc/banded_dp.cu, CUDA C++ for sm_90a) replaces the TPU kernel
 pallas_align.make_kernel as reached through each of its three entries;
-its source note says what bounds it and what the simple design gives up:
+its source note says what bounds it (instruction issue) and how it runs
+only the valid slots, two a thread in 16-bit halves where the scoring
+allows (an int32 kernel otherwise), with a band cell in Hopper's DPX
+instructions:
 
 - `banded_scores_packed` (pallas_align.banded_scores_packed): windows
   gathered from the 4-bit packed text; plain version
@@ -31,10 +34,15 @@ import torch
 
 from . import cuda_build
 from .align import SENTINEL, _score_windows, banded_dp, banded_scores
+from .dp_cases import BLOCK_SLOTS
 
 _SRC = cuda_build.PKG / "csrc" / "banded_dp.cu"
 RADII = (8, 12, 16)        # band radii the kernel is instantiated for
-OPS_PER_CELL = 14          # int32 operations per band cell (see the .cu)
+# Instructions a band cell needs with Hopper's DPX instructions: 8.5 for
+# two cells in 16-bit halves (csrc/banded_dp.cu), the route of every call
+# whose values fit int16, the main path's among them (the int32 route's
+# cell takes 7.5).
+OPS_PER_CELL = 4.25
 LANES = 128                # banded_scores_windows: N is a multiple of this
 
 _lib = None
@@ -77,8 +85,24 @@ def library() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_longlong] + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
+        lib.banded_dp_launches.restype = ctypes.c_longlong
+        lib.banded_dp_launches.argtypes = [ctypes.c_int]
+        lib.banded_dp_block_slots.restype = ctypes.c_int
+        if lib.banded_dp_block_slots() != BLOCK_SLOTS:
+            raise RuntimeError(
+                f"banded_dp.cu gives a block {lib.banded_dp_block_slots()} "
+                f"slots, dp_cases.BLOCK_SLOTS says {BLOCK_SLOTS}")
         _lib = lib
         return _lib
+
+
+def launches_by_route() -> dict:
+    """Launches of the DP kernels so far, all entries together: 16 for the
+    16x2 kernel (two slots a thread), 32 for the int32 one. The C entry
+    picks the route: int32 when a value of the call's DP could leave int16
+    (csrc/banded_dp.cu, fits16)."""
+    lib = library()
+    return {bits: int(lib.banded_dp_launches(bits)) for bits in (16, 32)}
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -286,9 +310,9 @@ def banded_scores_windows_ref(
 def dp_work(reads: torch.Tensor, rlen: torch.Tensor, cand_valid,
             text_entries: int, band_radius: int, *,
             source: str = "packed") -> tuple:
-    """(bytes, int32 operations) one call needs on these inputs: every
-    input read once and the output written once; OPS_PER_CELL for each
-    band cell of each slot's rows.
+    """(bytes, instructions) one call needs on these inputs: every input
+    read once and the output written once; OPS_PER_CELL instructions (the
+    16x2 DPX cell) for each band cell of each valid slot's rows.
 
     source "packed" / "bytes": candidate tables (R, C) over a text of
     `text_entries` int32 words / uint8 codes; each valid slot runs
@@ -301,10 +325,10 @@ def dp_work(reads: torch.Tensor, rlen: torch.Tensor, cand_valid,
         RLP = -(-RL // 8) * 8
         rows = rlen.to(torch.int64).clamp(0, RLP)
         nbytes = text_entries + R * RL + 4 * R + 4 * R
-        return nbytes, OPS_PER_CELL * int(rows.sum()) * W
+        return nbytes, round(OPS_PER_CELL * int(rows.sum()) * W)
     C = cand_valid.shape[1]
     rows = rlen[:R].to(torch.int64).clamp(0, RL)
     cells = int((cand_valid.to(torch.int64) * rows[:, None]).sum()) * W
     nbytes = ((4 if source == "packed" else 1) * text_entries + 2 * R * RL
               + 4 * R + R * C * (3 * 4 + 2) + 4 * R * C)
-    return nbytes, OPS_PER_CELL * cells
+    return nbytes, round(OPS_PER_CELL * cells)

@@ -2,7 +2,8 @@
 
 The counterpart of vg_tpu/ops/pallas_seed.py on the H100. The kernels in
 csrc/seed_kernels.cu (CUDA C++ for sm_90a) replace the TPU kernels
-_softcap_kernel, _cluster_kernel (two kernels: a warp per row, and a
+_softcap_kernel (a warp per row, instantiated for 4, 8, 16 or 32 columns
+a lane by mpad), _cluster_kernel (two kernels: a warp per row, and a
 block per row for rows of more than CLUSTER_WARP_T valid seeds) and
 _argsort_kernel; the source note says what bounds each and why it is
 built as it is.
@@ -62,6 +63,8 @@ def library() -> ctypes.CDLL:
         lib.seed_argsort.argtypes = [_I, _P, _I, _P, _P]
         lib.seed_cluster_warp_t.restype = _I
         lib.seed_attr_sets.restype = _I
+        lib.seed_softcap_launches.restype = ctypes.c_longlong
+        lib.seed_softcap_launches.argtypes = [_I]
         if lib.seed_cluster_warp_t() != CLUSTER_WARP_T:
             raise RuntimeError(
                 f"seed_kernels.cu keeps rows of up to "
@@ -75,6 +78,13 @@ def attribute_sets() -> int:
     """Dynamic shared-memory attributes the library has set: once per
     device and kernel, at the first launch on the device."""
     return library().seed_attr_sets()
+
+
+def softcap_launches_by_items() -> dict:
+    """Launches of the soft-cap kernel so far by its columns a lane
+    (mpad / 32: 4, 8, 16 or 32), counted by the library's C entry."""
+    lib = library()
+    return {e: int(lib.seed_softcap_launches(e)) for e in (4, 8, 16, 32)}
 
 
 def pow2_ge(x: int) -> int:

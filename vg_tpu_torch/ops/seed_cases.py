@@ -19,6 +19,12 @@ ARGSORT_SIZES = (1, 200, 257, 2049, 4096, 6144, 8192, 16384)
 CLUSTER_COUNTS = (1, 31, 32, 33, CLUSTER_WARP_T - 1, CLUSTER_WARP_T,
                   CLUSTER_WARP_T + 1, 4096)
 QUANTIZED = np.array([1.0, 1.5, 2.25, 4.0, 3.125])
+# minimizer columns of softcap_case rows: every mpad (128 to 1024) and both
+# sides of each power of two
+SOFTCAP_WIDTHS = (1, 127, 128, 129, 132, 256, 257, 1000, 1024)
+# kept columns a row holds in softcap_kept_case: both sides of one and two
+# warp widths
+SOFTCAP_KEPT = (31, 32, 33, 63, 64, 65)
 
 
 def softcap_case(rng, R: int, m: int = 132, hard_hit_cap: int = 500,
@@ -43,6 +49,66 @@ def softcap_case(rng, R: int, m: int = 132, hard_hit_cap: int = 500,
     hs = rng.integers(0, 1 << 20, (R, m)).astype(np.int32)
     cr = rng.integers(0, 2, (R, m)).astype(np.int32)
     return ms, keep, cheap, hs, cnt.astype(np.int32), cr
+
+
+def _softcap_extras(rng, keep, ms):
+    """cheap, hs, cnt, cr for kept columns `keep` with scores `ms`."""
+    R, m = ms.shape
+    cheap = keep & (rng.random((R, m)) < 0.4)
+    hs = rng.integers(0, 1 << 20, (R, m)).astype(np.int32)
+    cnt = np.where(keep, rng.integers(1, 31, (R, m)), 0).astype(np.int32)
+    cr = rng.integers(0, 2, (R, m)).astype(np.int32)
+    return ms.astype(np.float32), keep, cheap, hs, cnt, cr
+
+
+def softcap_kept_case(rng, m: int = 132, counts=SOFTCAP_KEPT,
+                      copies: int = 2):
+    """`copies` rows for each count of `counts`, each row keeping exactly
+    that many columns (quantized scores >= 1, random columns, some tied);
+    every other column scores 0, as on the path."""
+    ks = np.repeat([k for k in counts if k <= m], copies)
+    R = len(ks)
+    keep = np.zeros((R, m), bool)
+    for r, k in enumerate(ks):
+        keep[r, rng.choice(m, size=int(k), replace=False)] = True
+    ms = np.where(keep, rng.choice(QUANTIZED, (R, m)), 0.0)
+    return _softcap_extras(rng, keep, ms)
+
+
+def softcap_sign_case(rng, R: int, m: int = 132):
+    """Scores off the path's pattern: zeros of either sign (kept and not
+    kept), negative quantized scores, kept or not, next to positive ones;
+    every third row has no positive score."""
+    ms = rng.choice(np.concatenate([QUANTIZED, -QUANTIZED, [0.0, -0.0]]),
+                    (R, m))
+    ms[2::3] = -np.abs(ms[2::3])
+    ms[rng.random((R, m)) < 0.2] = -0.0
+    keep = rng.random((R, m)) < 0.6
+    return _softcap_extras(rng, keep, ms)
+
+
+def softcap_budget_case(rng, R: int, m: int = 132):
+    """Rows whose exclusive score sum equals the budget exactly, at an
+    expensive column, with score_fraction 0.5: kept scores X (>= 2.25, a
+    few cheap) and four copies of X / 4 (<= 1, expensive), so the total
+    is 2 sum(X) and the first X / 4 column sees sum(X) before it. The
+    strict < must not take it. Use score_fraction=0.5."""
+    ms = np.zeros((R, m))
+    keep = np.zeros((R, m), bool)
+    cheap = np.zeros((R, m), bool)
+    for r in range(R):
+        k = int(rng.integers(1, max(2, min(m // 5, 12)) + 1))
+        if 5 * k > m:
+            k = max(m // 5, 0)
+        x = rng.choice(QUANTIZED[QUANTIZED >= 2.25], k)
+        cols = rng.choice(m, size=5 * k, replace=False)
+        ms[r, cols[:k]] = x
+        ms[r, cols[k:]] = np.repeat(x / 4, 4)
+        keep[r, cols] = True
+        cheap[r, cols[:k]] = rng.random(k) < 0.3
+    out = list(_softcap_extras(rng, keep, ms))
+    out[2] = cheap
+    return tuple(out)
 
 
 def cluster_case(rng, R: int, S: int, B: int = 16):
