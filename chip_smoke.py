@@ -27,7 +27,19 @@ kernels' launch counts set to 0 just before it and read just after:
   index, LongReadMapper with engine="native" and then engine="device"
   (the link engine, ops/device_links.py, in torch ops on the card); 16
   reads warm the native engine, the device engine warms on the 496 timed
-  reads. The two engines' 496 records must be byte-identical.
+  reads. The two engines' 496 records must be byte-identical;
+- `vg map -A` (MEMMapper, qual_adjusted=True): 150 bp reads with
+  qualities from ReadSimulator, one warmup batch and 8 timed batches of
+  512 through map_batch, the DP's quality entry (banded_dp_qual_packed) on
+  the card; placement against the simulator's truth and the first timed
+  batch against a CPU twin. The quality entry is then held against its
+  plain version on ops/dp_cases.qual_case and on the warmup batch;
+- surject: the host-seeded path's first 8,192 records to SAM records
+  (Surjector.surject_batch), through BAM and back, as bench.py's surject
+  sidecar;
+- pack and call: sample s1's reads at 30x diploid depth mapped on the
+  card (host seeding), Packer, SnarlCaller, genotype concordance against
+  the fixture's VCF.
 
 It checks the records (count, placement against the simulated truth, the
 card against the CPU, the long-read engines against each other).
@@ -70,6 +82,9 @@ BAND = 16                 # GiraffeParams.band_radius, the main path's
 BATCH = 6144              # bench.py's pairs a batch (BENCH_BATCH default)
 N_BATCHES = 8             # batches streamed through the pipeline
 LR_READS, LR_WARM, LR_LEN = 512, 16, 10_000   # bench.py's long-read sidecar
+VGMAP_BATCH, VGMAP_BATCHES = 512, 8   # vg map: the CLI's --batch-size
+SURJECT_N = 8192          # bench.py's surject sidecar: GAM records surjected
+CALL_DEPTH = 30           # pack + call: sample s1's diploid read depth
 # H100 SXM peaks. No instruction mix issues more than one warp
 # instruction per scheduler per clock: 132 SMs x 4 schedulers x 32 lanes
 # x 1.98 GHz = 33.4 T lane-operations/s is the integer DP's ceiling (the
@@ -216,7 +231,7 @@ def build_fixture(seed, ref_mbp, n_pairs):
     log(f"fixture: {g.node_count} nodes, {haps.count} haplotypes, text "
         f"{haps.total_len} bp, {idx.unique_count} minimizers, "
         f"{n_pairs} pairs ({time.time() - t0:.1f} s)")
-    return haps, idx, mem, pairs, truth
+    return haps, idx, mem, vcf, pairs, truth
 
 
 # -------------------------------------------------------------- phases
@@ -234,6 +249,7 @@ def kernel_wrappers() -> dict:
     return {"banded_dp": cuda_align.banded_scores_packed,
             "banded_dp_bytes": cuda_align.banded_scores_bytes,
             "banded_dp_windows": cuda_align.banded_scores_windows,
+            "banded_dp_qual": cuda_align.banded_scores_qual_packed,
             "softcap_compact": cuda_seed.softcap_compact,
             "cluster_topc": cuda_seed.cluster_topc,
             "argsort_i32": cuda_seed.argsort_i32}
@@ -372,8 +388,8 @@ def phase_int_pipes(card):
 def sass_check(lib_path):
     """cuobjdump -sass of the banded-DP library: for each kernel, its
     instruction count and its DPX and other integer min/max instructions.
-    Fails unless every instantiation of either DP kernel issues both DPX
-    forms."""
+    Fails unless every instantiation of each DP kernel (the 16x2, the
+    int32 and the quality entry's) issues both DPX forms."""
     from vg_tpu_torch.ops import cuda_build
 
     tool = pathlib.Path(cuda_build.nvcc()).with_name("cuobjdump")
@@ -392,7 +408,7 @@ def sass_check(lib_path):
             op = ins.group(1)
             funcs[name][op] = funcs[name].get(op, 0) + 1
     for fn, ops in sorted(funcs.items()):
-        if not re.search(r"banded_dp(16)?_kernel", fn):
+        if not re.search(r"banded_dp(16|_qual)?_kernel", fn):
             continue
         short = re.sub(r"^_ZN\w*?banded_dp", "banded_dp", fn)
         mnmx = {op: n for op, n in sorted(ops.items()) if "MNMX" in op}
@@ -1406,6 +1422,307 @@ def phase_longread(haps, idx, card, seed):
     return dict(native_rps=n_timed / dt_n, device_rps=n_timed / dt_d)
 
 
+# ------------------------------------------------- vg map, surject, call
+
+def vgmap_reads(mapper, seed, n):
+    """150 bp reads with qualities from ReadSimulator(with_quality=True),
+    and each read's truth (the simulated alignment, its refpos on the
+    mapper's reference paths)."""
+    from vg_tpu_torch.io.fastq import Read
+    from vg_tpu_torch.sim.simulator import ReadSimulator
+
+    sim = ReadSimulator(mapper.haps, seed=seed, read_length=150,
+                        with_quality=True,
+                        ref_path_names=mapper.path_pos.path_names)
+    truth = sim.simulate(n)
+    reads = [Read(a.name, a.sequence, "".join(chr(33 + b) for b in a.quality))
+             for a in truth]
+    return reads, truth
+
+
+def refpos_placed(recs, truth, tol=100) -> tuple:
+    """(placed share, reads with a truth position): the first refpos
+    within tol bp of the truth's first refpos on the same path, over the
+    reads whose truth has one."""
+    from vg_tpu_torch.io.gam import Alignment
+
+    ok = n = 0
+    for rec, t in zip(recs, truth):
+        if not t.refpos:
+            continue
+        n += 1
+        a = Alignment.decode(bytes(rec))
+        ok += bool(a.refpos) and a.refpos[0].name == t.refpos[0].name \
+            and abs(a.refpos[0].offset - t.refpos[0].offset) <= tol
+    return ok / max(n, 1), n
+
+
+def phase_vg_map(haps, mem, card, seed):
+    """`vg map -A` (workload 1: cmd_giraffe --engine mem with qualities):
+    MEMMapper(qual_adjusted=True, batch_reads=512) driven by map_batch on
+    the card, 1 warmup batch, then VGMAP_BATCHES timed batches with the
+    launch counts set to 0 before them. Checks: the quality entry
+    launched once a batch, >= 95% placed against the simulator's truth,
+    the first timed batch's records byte-identical to a device="cpu"
+    twin's. Returns the numbers and the quality entry's inputs on the
+    warmup batch (captured from the wrapper call)."""
+    from vg_tpu_torch.map.giraffe import GiraffeParams
+    from vg_tpu_torch.map.memmapper import MEMMapper
+    from vg_tpu_torch.ops import cuda_align
+
+    params = GiraffeParams(qual_adjusted=True, batch_reads=VGMAP_BATCH)
+    mapper = MEMMapper(haps, mem, params)
+    bs = VGMAP_BATCH
+    reads, truth = vgmap_reads(mapper, seed + 11, bs * (VGMAP_BATCHES + 1))
+    captured = []
+    wrapper = cuda_align.banded_scores_qual_packed
+
+    def capture(*a, **kw):
+        # the wrapper counts itself under its module name: put it back
+        # before it runs
+        cuda_align.banded_scores_qual_packed = wrapper
+        captured.append((a, kw))
+        return wrapper(*a, **kw)
+
+    t0 = time.time()
+    cuda_align.banded_scores_qual_packed = capture
+    try:
+        warm = mapper.map_batch(reads[:bs])
+    finally:
+        cuda_align.banded_scores_qual_packed = wrapper
+    torch.cuda.synchronize()
+    assert len(captured) == 1 and len(warm) == bs, (len(captured), len(warm))
+    log(f"vg map warmup: {bs} reads in {time.time() - t0:.2f} s")
+    reset_launches()
+    recs = []
+    t0 = time.time()
+    for k in range(1, VGMAP_BATCHES + 1):
+        recs += [a.encode() for a in mapper.map_batch(
+            reads[k * bs : (k + 1) * bs])]
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    n = kernel_launches()
+    frac, n_truth = refpos_placed(recs, truth[bs:])
+    first = reads[bs : 2 * bs]
+    events, wall = profiled(lambda: mapper.map_batch(first))
+    busy = sum(us for _, us in events) / 1e3
+    cpu = MEMMapper(haps, mem, params, device="cpu")
+    t1 = time.time()
+    cpu_recs = [a.encode() for a in cpu.map_batch(first)]
+    n_diff = sum(1 for a, b in zip(recs[:bs], cpu_recs) if a != b)
+    log(f"vg map (MEMMapper, qual_adjusted, batch {bs}): {len(recs)} reads "
+        f"in {dt:.2f} s = {len(recs) / dt:.1f} reads/s; launches "
+        f"{json.dumps(n)}; {100 * frac:.2f}% placed within 100 bp of the "
+        f"simulator's truth ({n_truth} reads with a truth position); one "
+        f"batch under the profiler: device busy {busy:.2f} ms of "
+        f"{wall:.3f} s wall (idle {100 - 100 * busy / (1e3 * wall):.2f}%); "
+        f"card vs CPU twin (CPU {time.time() - t1:.2f} s): {n_diff} of {bs} "
+        f"records differ, on {card}")
+    assert len(recs) == bs * VGMAP_BATCHES, len(recs)
+    assert n["banded_dp_qual"] >= VGMAP_BATCHES, n
+    assert frac >= 0.95, frac
+    assert len(cpu_recs) == bs and n_diff == 0, \
+        f"vg map: {n_diff} records differ between the card and the CPU"
+    return dict(reads_per_s=len(recs) / dt, seconds=dt, placed=frac,
+                launches=n["banded_dp_qual"], busy_ms=busy,
+                wall_s=wall), captured[0]
+
+
+def qual_case_tensors(rng, text, R, B, tabs=None):
+    """dp_cases.qual_case on the fixture's text as the wrapper's
+    arguments (packed text and T first, the tables last)."""
+    from vg_tpu_torch.ops import cuda_align, dp_cases, qualadj
+
+    args = dp_cases.qual_case(rng, R=R, B=B, text=text)
+    tabs = qualadj.qual_tables(1, 4, 5) if tabs is None else tabs
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+    return ([put(cuda_align.pack_text(text)), len(text)]
+            + [put(a) for a in args[1:]]
+            + [put(np.asarray(t, np.int32)) for t in tabs])
+
+
+def phase_qual_kernel(text, vgmap_inputs):
+    """The quality entry (banded_dp_qual_packed) against its plain version
+    on the card, exact: dp_cases.qual_case on the fixture's text at B = 8,
+    12 and 16 (both strands, rlen < RL and rlen 0 on valid slots, N bases,
+    phred 0-2 and 61-93, quality strings shorter than the read, windows
+    cut by lo / hi or the text's ends, invalid slots), the same at B = 16
+    with tables of either sign, and the vg map phase's own first batch.
+    Its launches here are checks, not counted. Times and the bound on the
+    vg map batch."""
+    from vg_tpu_torch.ops import cuda_align, dp_cases
+
+    rng = np.random.default_rng(6)
+    cases = [(f"qual_case R=1024 B={b}", qual_case_tensors(rng, text, 1024, b),
+              b) for b in (8, 12, BAND)]
+    cases.append((f"qual_case R=1024 B={BAND}, tables of either sign",
+                  qual_case_tensors(rng, text, 1024, BAND,
+                                    dp_cases.signed_tables(rng)), BAND))
+    a, kw = vgmap_inputs
+    cases.append(("vg map batch 0", list(a), kw["band_radius"]))
+    mism, err = 0, 0
+    for label, args, b in cases:
+        got = cuda_align.banded_scores_qual_packed(*args, band_radius=b)
+        torch.cuda.synchronize()
+        want = cuda_align.banded_scores_qual_packed_ref(*args, band_radius=b)
+        bad, e = max_err((got,), (want,))
+        log(f"banded_dp_qual vs plain, {label}: {tuple(got.shape)} {bad} "
+            f"mismatches, max |err| {e}, {int(args[-4].sum())} valid slots")
+        mism += bad
+        err = max(err, e)
+    if mism:
+        raise AssertionError(f"banded_dp_qual disagrees with its plain "
+                             f"version on {mism} slots")
+    args = list(a)
+    b = kw["band_radius"]
+    packed, reads, rlen, valid = args[0], args[2], args[5], args[-4]
+    nbytes, ops = cuda_align.dp_work(reads, rlen, valid, packed.numel(), b,
+                                     source="qual",
+                                     tab_entries=args[-1].numel())
+    res = time_entry(
+        lambda: cuda_align.banded_scores_qual_packed(*args, band_radius=b),
+        lambda: cuda_align.banded_scores_qual_packed_ref(*args,
+                                                         band_radius=b),
+        nbytes, ops)
+    return dict(res, mismatches=mism, max_abs_err=err,
+                shape=f"R={reads.shape[0]} C={valid.shape[1]} "
+                      f"RL={reads.shape[1]} B={b}",
+                valid=int(valid.sum()), slots=valid.numel())
+
+
+def phase_surject(graph, recs, card):
+    """Surjection (workload 3) as bench.py's sidecar runs it: the first
+    SURJECT_N records of the host-seeded path's GAM, surject_batch warmed
+    on 256, then timed; the records through io/bam.write_bam and read
+    back equal; each mapped record's CIGAR consumes its read's bases and
+    its position lies in [1, contig length]; >= 90% mapped."""
+    import io
+
+    from vg_tpu_torch.io import bam
+    from vg_tpu_torch.io.gam import Alignment
+    from vg_tpu_torch.io.sam import cigar_ops
+    from vg_tpu_torch.surject.surjector import Surjector
+
+    alns = [Alignment.decode(bytes(r)) for r in recs[:SURJECT_N]]
+    sj = Surjector(graph)
+    sj.surject_batch(alns[:256])
+    t0 = time.time()
+    srecs = sj.surject_batch(alns)
+    dt = time.time() - t0
+    buf = io.BytesIO()
+    bam.write_bam(buf, sj.header(), sj.ref_lengths(), srecs)
+    _, refs, back = bam.read_bam(io.BytesIO(buf.getvalue()))
+    contig = dict(sj.ref_lengths())
+    mapped = bad = 0
+    for a, r in zip(alns, srecs):
+        if r.flag & 0x4:
+            continue
+        mapped += 1
+        used = sum(n for op, n in cigar_ops(r.cigar) if op in "MIS=X")
+        bad += used != len(a.sequence) or not 1 <= r.pos <= contig[r.rname]
+    log(f"surject: {len(srecs)} alignments in {dt:.3f} s = "
+        f"{len(srecs) / dt:.1f} alns/s, {mapped} mapped "
+        f"({100 * mapped / len(srecs):.2f}%), {bad} break the CIGAR / "
+        f"position invariants; BAM {len(buf.getvalue())} bytes, read back "
+        f"{len(back)} records on {card}")
+    assert len(srecs) == len(alns) == SURJECT_N, (len(srecs), len(alns))
+    assert [r.line() for r in back] == [r.line() for r in srecs]
+    assert refs == sj.ref_lengths(), refs
+    assert bad == 0, f"{bad} surjected records break the invariants"
+    assert mapped >= 0.9 * len(srecs), mapped
+    return dict(alns_per_s=len(srecs) / dt, seconds=dt,
+                mapped=mapped / len(srecs))
+
+
+def depth_reads(rng, haps, depth, L=150, err=0.002):
+    """tests/test_property.py's calling reads: sample s1's two haplotypes
+    at `depth` diploid depth, L bp, substitutions at `err`."""
+    from vg_tpu_torch.io.fastq import Read
+    from vg_tpu_torch.utils import dna
+
+    ranges = [haps.hap_text_range(i) for i, m in enumerate(haps.metas)
+              if m.sample == "s1"]
+    assert ranges, [m.sample for m in haps.metas]
+    n = depth * haps.graph.path_len("ref") // L // len(ranges)
+    reads = []
+    for t0, t1 in ranges:
+        for i in range(n):
+            s = int(rng.integers(t0, t1 - L))
+            c = haps.text[s : s + L].copy()
+            ne = rng.binomial(L, err)
+            ps = rng.integers(0, L, ne)
+            c[ps] = (c[ps] + 1 + rng.integers(0, 3, ne)) % 4
+            reads.append(Read(f"d{t0}_{i}", dna.decode(c), ""))
+    return reads
+
+
+def genotype_concordance(calls, vcf) -> tuple:
+    """tests/test_property.py's rule: (agreeing, compared) genotype
+    classes (ref / het / hom) of the calls at the truth sites of sample
+    s1 (a call's position, or one off it)."""
+    truth = {rec.pos: tuple(sorted(rec.genotypes[0][0]))
+             for rec in vcf.records}
+    cls = lambda gt: "ref" if gt[0] == gt[1] == 0 else (
+        "het" if gt[0] != gt[1] else "hom")
+    ok = tot = 0
+    for vc in calls:
+        t = truth.get(vc.pos) or truth.get(vc.pos + 1) \
+            or truth.get(vc.pos - 1)
+        if t is None:
+            continue
+        tot += 1
+        ok += cls(tuple(sorted(int(x) for x in vc.genotype))) == cls(t)
+    return ok, tot
+
+
+def phase_pack_call(haps, idx, mem, vcf, card, seed):
+    """Pack and call (workload 5), tests/test_property.py's protocol at the
+    fixture's size: s1's reads at CALL_DEPTH, mapped single-end on the
+    card through the host-seeded path (launch counts set to 0 before),
+    Packer.add_batch, SnarlCaller(..., "ref", sample_name="s1").call();
+    genotype-class concordance >= 85% at >= 20 truth sites."""
+    from vg_tpu_torch.call.caller import SnarlCaller
+    from vg_tpu_torch.call.pack import Packer
+    from vg_tpu_torch.io.gam import Alignment
+    from vg_tpu_torch.map.giraffe import GiraffeMapper, GiraffeParams
+
+    reads = depth_reads(np.random.default_rng(seed + 13), haps, CALL_DEPTH)
+    mapper = GiraffeMapper(haps, idx, GiraffeParams(batch_reads=BATCH))
+    mapper._mem_fallback_index = mem
+    reset_launches()
+    t0 = time.time()
+    recs = [r for out in mapper.map_stream_encoded(
+        iter([reads[i : i + BATCH] for i in range(0, len(reads), BATCH)]))
+        for r in out]
+    torch.cuda.synchronize()
+    dt_map = time.time() - t0
+    n = kernel_launches()
+    t0 = time.time()
+    alns = [Alignment.decode(bytes(r)) for r in recs]
+    dt_dec = time.time() - t0
+    pk = Packer(haps.graph)
+    t0 = time.time()
+    pk.add_batch(alns)
+    dt_pack = time.time() - t0
+    t0 = time.time()
+    calls = SnarlCaller(haps.graph, pk, "ref", sample_name="s1").call()
+    dt_call = time.time() - t0
+    ok, tot = genotype_concordance(calls, vcf)
+    log(f"pack + call: {len(reads)} reads of s1 at {CALL_DEPTH}x mapped in "
+        f"{dt_map:.2f} s ({len(reads) / dt_map:.0f} reads/s, launches "
+        f"{json.dumps(n)}), decoded in {dt_dec:.2f} s; pack {len(alns)} "
+        f"alignments in {dt_pack:.3f} s = {len(alns) / dt_pack:.1f} alns/s, "
+        f"mean coverage {pk.mean_coverage('ref'):.2f}; call {dt_call:.3f} s, "
+        f"{len(calls)} calls, genotype classes agree at {ok} of {tot} truth "
+        f"sites ({100 * ok / max(tot, 1):.2f}%) on {card}")
+    assert len(recs) == len(reads), (len(recs), len(reads))
+    assert n["banded_dp"] >= -(-len(reads) // BATCH), n
+    assert tot >= 20, tot
+    assert ok >= 0.85 * tot, (ok, tot)
+    return dict(reads=len(reads), pack_alns_per_s=len(alns) / dt_pack,
+                call_s=dt_call, concordance=ok / tot, sites=tot)
+
+
 # the kernels the device-seeded path launches (banded_dp_bytes and
 # banded_dp_windows lie on no path: vg_tpu runs them only in benchmarks)
 SEEDED_PATH_KERNELS = ["banded_dp", "softcap_compact", "cluster_topc",
@@ -1423,6 +1740,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                      "vg_tpu/ops/pallas_seed.py:275"),
     "argsort_i32": ("vg_tpu_torch/csrc/seed_kernels.cu",
                     "vg_tpu/ops/pallas_seed.py:398"),
+    "banded_dp_qual": ("vg_tpu_torch/csrc/banded_dp.cu",
+                       "vg_tpu/ops/align.py:164 banded_scores_qual "
+                       "(XLA scan, no Pallas kernel)"),
 }
 
 
@@ -1446,7 +1766,7 @@ def main(argv=None) -> int:
     phase_build()
     phase_int_pipes(card)
     bs = BATCH
-    haps, idx, mem, pairs, truth = build_fixture(
+    haps, idx, mem, vcf, pairs, truth = build_fixture(
         args.seed, args.ref_mbp, bs * (N_BATCHES + 1))
 
     # the main path's own kernel inputs (its first streamed batch)
@@ -1528,10 +1848,22 @@ def main(argv=None) -> int:
     if args.profile:
         phase_profile(pm, pairs, bs, N_BATCHES, "host seeding")
         phase_profile(spm, pairs, bs, N_BATCHES, "device seeding")
+    surject_recs = host_recs[:SURJECT_N]
     del pm, spm, host_recs, seeded_recs
 
     # long-read mapping, both engines
     phase_longread(haps, idx, card, args.seed)
+
+    # vg map with qualities and its DP entry; surject; pack and call
+    vgmap, vgmap_inputs = phase_vg_map(haps, mem, card, args.seed)
+    qual = phase_qual_kernel(haps.text, vgmap_inputs)
+    log(f"banded_dp_qual at {qual['shape']}, vg map batch 0 "
+        f"({qual['valid']} valid slots of {qual['slots']}): "
+        f"{timing_text(qual)} on {card}")
+    del vgmap_inputs
+    phase_surject(haps.graph, surject_recs, card)
+    del surject_recs
+    phase_pack_call(haps, idx, mem, vcf, card, args.seed)
     log(f"total {time.time() - t_start:.1f} s")
 
     rows = []
@@ -1543,6 +1875,9 @@ def main(argv=None) -> int:
         elif name in entries:        # on no path: their checks' launches
             k = dict(entries[name], library_ms=None)
             n = k["check_launches"]
+        elif name == "banded_dp_qual":
+            k = dict(qual, library_ms=None)
+            n = vgmap["launches"]
         else:
             k = seedk[name]
             n = sres["stream_launches"][name]

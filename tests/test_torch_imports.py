@@ -18,6 +18,8 @@ import chip_smoke
 # chip_smoke imports the port lazily, phase by phase: pull those in too
 import vg_tpu_torch.io.gam, vg_tpu_torch.map.paired, vg_tpu_torch.native
 import vg_tpu_torch.parallel.pipeline, vg_tpu_torch.map.memmapper
+import vg_tpu_torch.surject.surjector, vg_tpu_torch.call.caller
+import vg_tpu_torch.sim.simulator, vg_tpu_torch.io.bam
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vg_tpu"))
 print(len(names))
@@ -30,7 +32,7 @@ def test_port_imports_no_jax_and_no_vg_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     n_modules, bad = (out.stdout.splitlines() + ["", ""])[:2]
-    assert int(n_modules) >= 39, out.stdout
+    assert int(n_modules) >= 65, out.stdout
     assert bad == "", f"imported: {bad}"
 
 

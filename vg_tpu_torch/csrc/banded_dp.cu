@@ -15,6 +15,14 @@
 //   Slot n aligns reads[n] as given against row n of an (N, TW) uint8
 //   array, sentinel 6 past column TW; rlen[n] = 0 marks an empty slot.
 //
+// A fourth entry, banded_dp_qual_packed, replaces no TPU kernel: it is the
+// quality-adjusted DP that vg_tpu runs as an XLA scan
+// (vg_tpu/ops/align.py:164 banded_scores_qual), on the packed words. It
+// runs the int32 route with each row's match and mismatch scores read from
+// phred-indexed tables (kept in shared memory) at the row's oriented
+// quality, and the two full-length bonuses from a third table at the first
+// and the last oriented base's quality (QualScores below).
+//
 // The DP: band W = 2B + 1, match +m / mismatch -x, gap open o / extend e,
 // full-length bonus at both read ends, a zero floor (free soft clips), and
 // E as an exact running max along the band. The score is max(best cell,
@@ -112,17 +120,76 @@ constexpr int kSlots = 128;        // slots a block owns
 constexpr int kMaxPairThreads = 512;   // 16x2 kernel: two slots a thread
 constexpr int kMaskRows = 5;       // bases 0-3, and 4: the empty mask
 constexpr int kNeg16 = -16384;     // the 16x2 kernel's -inf
+constexpr int kMaxQualTab = 128;   // quality-table entries (cuda_align.py)
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Scoring {
   int match, mismatch, gap_open, gap_extend, bonus;
 };
 
-// One slot's inputs: its oriented read, its length and the rows to fill.
+// One slot's inputs: its oriented read, its length and the rows to fill;
+// the read's index and strand (the quality entry reads its qualities).
 struct Slot {
   const uint8_t* rd;
   int rl;
   int rows;
+  long long read;
+  bool rev;
+};
+
+// A slot's scores as dp_slot takes them, offset by the gap open (dp_slot
+// keeps G = H - o): row(i) gives hit = m + o and miss = o + x for row i (x
+// the signed mismatch score), first() the left full-length bonus and
+// last() the right one.
+struct PlainRows {   // the unadjusted scoring: every row the same
+  int hit, miss, bonus;
+  __device__ __forceinline__ void row(int, int& h, int& m) const {
+    h = hit;
+    m = miss;
+  }
+  __device__ __forceinline__ int first() const { return bonus; }
+  __device__ __forceinline__ int last() const { return bonus; }
+};
+
+struct PlainScores {
+  Scoring sc;
+  __device__ __forceinline__ PlainRows of(const Slot&) const {
+    return PlainRows{sc.match + sc.gap_open, sc.gap_open - sc.mismatch,
+                     sc.bonus};
+  }
+};
+
+// Base-quality-adjusted scores (vg_tpu.ops.align.banded_scores_qual): row
+// i's oriented quality is q[i], or q[clip(rl - 1 - i, 0, RL - 1)] on the
+// reverse strand, clipped to the tables' last index; the left bonus is
+// taken at row 0's quality, the right one at row rl - 1's.
+struct QualRows {
+  const uint8_t* q;                    // the read's forward qualities
+  const int32_t *mt, *mm, *bt;         // the tables, in shared memory
+  int rev, rl, RL, qmax, o;
+  __device__ __forceinline__ int qual(int i) const {
+    int j = rev ? rl - 1 - i : i;
+    j = j < 0 ? 0 : (j > RL - 1 ? RL - 1 : j);
+    const int v = (int)__ldg(q + j);
+    return v < qmax ? v : qmax;
+  }
+  __device__ __forceinline__ void row(int i, int& h, int& m) const {
+    const int v = qual(i);
+    h = mt[v] + o;
+    m = o + mm[v];
+  }
+  __device__ __forceinline__ int first() const { return bt[qual(0)]; }
+  __device__ __forceinline__ int last() const { return bt[qual(rl - 1)]; }
+};
+
+struct QualScores {
+  const uint8_t* quals;                // (R, RL) forward qualities
+  const int32_t *mt, *mm, *bt;
+  int RL, qmax, o;
+  __device__ __forceinline__ QualRows of(const Slot& s) const {
+    return QualRows{quals + s.read * RL, mt, mm, bt, s.rev ? 1 : 0, s.rl,
+                    RL, qmax, o};
+  }
 };
 
 // m[b] |= bit for the code c of one window column (b = 0..3).
@@ -216,7 +283,9 @@ struct TextSource {
     const long long r = n / C;
     s.rl = rlen[r];
     s.rows = s.rl < RL ? s.rl : RL;
-    s.rd = (crev[n] ? reads_rc : reads) + r * RL;
+    s.read = r;
+    s.rev = crev[n] != 0;
+    s.rd = (s.rev ? reads_rc : reads) + r * RL;
     w.text = text;
     w.T = T;
     w.start = cstart[n];
@@ -255,6 +324,8 @@ struct WindowSource {
     const int rlp = (RL + 7) / 8 * 8;
     s.rl = rlen[n];
     s.rows = s.rl < rlp ? s.rl : rlp;
+    s.read = n;
+    s.rev = false;
     s.rd = reads + n * RL;
     w.row = windows + n * TW;
     w.TW = TW;
@@ -340,25 +411,27 @@ __device__ __forceinline__ int compact_block(const Source& src,
 
 // ---------------------------------------------------------------- 32-bit
 
-// The DP of one valid slot n in int32 (G = H - o). `mask` is the thread's
-// column of a (kMaskRows * 2, kT) array.
-template <int B, int kT, class Source>
+// The DP of one valid slot n in int32 (G = H - o), with the row scores of
+// `scores` (PlainScores or QualScores). `mask` is the thread's column of a
+// (kMaskRows * 2, kT) array.
+template <int B, int kT, class Source, class Scores>
 __device__ __forceinline__ int dp_slot(const Source& src, long long n,
                                        int RL, const Scoring& sc,
-                                       uint32_t* mask) {
+                                       const Scores& scores, uint32_t* mask) {
   constexpr int W = 2 * B + 1;
   typename Source::Window win;
   Slot s;
   src.slot(n, win, s);
+  const auto rs = scores.of(s);
   const int o = sc.gap_open, e = sc.gap_extend;
-  const int hit_score = sc.match + o, miss_score = o - sc.mismatch;
   init_masks(win, mask, kT);
 
   // G = H - o; G[W], F[W] are the cells above the band's last column
+  const int g0 = (s.rows > 0 ? rs.first() : 0) - o;
   int G[W + 1], F[W + 1];
 #pragma unroll
   for (int k = 0; k < W; ++k) {
-    G[k] = sc.bonus - o;   // row "-1": the left full-length bonus
+    G[k] = g0;             // row "-1": the left full-length bonus
     F[k] = kNeg;
   }
   G[W] = kNeg - o;
@@ -369,6 +442,8 @@ __device__ __forceinline__ int dp_slot(const Source& src, long long n,
     if ((i & 31) == 0 && i > 0) store_masks(win, (i >> 5) + 1, mask, kT);
     uint32_t m0, m1;
     row_mask(mask, kT, i < RL ? (int)s.rd[i] : kReadPad, i, m0, m1);
+    int hit_score, miss_score;
+    rs.row(i, hit_score, miss_score);
     int ep = kNeg;         // E': the deletion value entering cell k
     int rmax = kNeg;
     int gprev = kNeg;
@@ -395,7 +470,7 @@ __device__ __forceinline__ int dp_slot(const Source& src, long long n,
     last = rmax;
   }
   // the end-of-read bonus, when the last row run is the read's last base
-  if (s.rows > 0 && s.rows == s.rl) best = max(best, last + o + sc.bonus);
+  if (s.rows > 0 && s.rows == s.rl) best = max(best, last + o + rs.last());
   return best;
 }
 
@@ -411,7 +486,39 @@ banded_dp_kernel(const Source src, int32_t* __restrict__ out, long long N,
   const int t = threadIdx.x;
   if (t >= count) return;
   const long long slot = n0 + s_list[t];
-  out[slot] = dp_slot<B, kSlots>(src, slot, RL, sc, s_mask + t);
+  out[slot] = dp_slot<B, kSlots>(src, slot, RL, sc, PlainScores{sc},
+                                 s_mask + t);
+}
+
+// The quality entry: banded_dp_kernel's int32 body with QualScores. The
+// block copies the three tables (nq <= kMaxQualTab entries each) to
+// shared memory; compact_block's barriers publish them.
+template <int B>
+__global__ void __launch_bounds__(kSlots)
+banded_dp_qual_kernel(const TextSource<true> src,
+                      const uint8_t* __restrict__ quals,
+                      const int32_t* __restrict__ mt,
+                      const int32_t* __restrict__ mm,
+                      const int32_t* __restrict__ bt, int nq,
+                      int32_t* __restrict__ out, long long N, int RL,
+                      const Scoring sc) {
+  __shared__ uint32_t s_mask[kMaskRows * 2 * kSlots];
+  __shared__ int s_list[kSlots];
+  __shared__ int s_count[kSlots / 32];
+  __shared__ int32_t s_tab[3 * kMaxQualTab];
+  for (int j = threadIdx.x; j < nq; j += blockDim.x) {
+    s_tab[j] = mt[j];
+    s_tab[kMaxQualTab + j] = mm[j];
+    s_tab[2 * kMaxQualTab + j] = bt[j];
+  }
+  const long long n0 = (long long)blockIdx.x * kSlots;
+  const int count = compact_block<1>(src, out, N, n0, s_list, s_count);
+  const int t = threadIdx.x;
+  if (t >= count) return;
+  const long long slot = n0 + s_list[t];
+  const QualScores qs{quals, s_tab, s_tab + kMaxQualTab,
+                      s_tab + 2 * kMaxQualTab, RL, nq - 1, sc.gap_open};
+  out[slot] = dp_slot<B, kSlots>(src, slot, RL, sc, qs, s_mask + t);
 }
 
 // ---------------------------------------------------------------- 16x2
@@ -628,16 +735,12 @@ cudaError_t use_device(int device) {
 }
 
 template <bool kPacked>
-int launch_text(int device, const void* text, long long T, const void* reads,
-                const void* reads_rc, const void* rlen, const void* start,
-                const void* lo, const void* hi, const void* rev,
-                const void* valid, void* out, int R, int C, int RL, int B,
-                int match, int mismatch, int gap_open, int gap_extend,
-                int bonus, void* stream) {
-  const long long N = (long long)R * C;
-  if (N == 0) return (int)cudaSuccess;
-  const cudaError_t set = use_device(device);
-  if (set != cudaSuccess) return (int)set;
+TextSource<kPacked> text_source(const void* text, long long T,
+                                const void* reads, const void* reads_rc,
+                                const void* rlen, const void* start,
+                                const void* lo, const void* hi,
+                                const void* rev, const void* valid, int C,
+                                int RL) {
   TextSource<kPacked> src;
   src.text = static_cast<const typename TextSource<kPacked>::Word*>(text);
   src.T = T;
@@ -651,6 +754,33 @@ int launch_text(int device, const void* text, long long T, const void* reads,
   src.cvalid = static_cast<const uint8_t*>(valid);
   src.C = C;
   src.RL = RL;
+  return src;
+}
+
+template <int B>
+cudaError_t launch_qual(const TextSource<true>& src, const uint8_t* quals,
+                        const int32_t* mt, const int32_t* mm,
+                        const int32_t* bt, int nq, int32_t* out, long long N,
+                        int RL, const Scoring& sc, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((N + kSlots - 1) / kSlots);
+  banded_dp_qual_kernel<B><<<blocks, kSlots, 0, stream>>>(
+      src, quals, mt, mm, bt, nq, out, N, RL, sc);
+  return cudaGetLastError();
+}
+
+template <bool kPacked>
+int launch_text(int device, const void* text, long long T, const void* reads,
+                const void* reads_rc, const void* rlen, const void* start,
+                const void* lo, const void* hi, const void* rev,
+                const void* valid, void* out, int R, int C, int RL, int B,
+                int match, int mismatch, int gap_open, int gap_extend,
+                int bonus, void* stream) {
+  const long long N = (long long)R * C;
+  if (N == 0) return (int)cudaSuccess;
+  const cudaError_t set = use_device(device);
+  if (set != cudaSuccess) return (int)set;
+  const auto src = text_source<kPacked>(text, T, reads, reads_rc, rlen,
+                                        start, lo, hi, rev, valid, C, RL);
   return (int)launch(src, static_cast<int32_t*>(out), N, RL, RL, B,
                      Scoring{match, mismatch, gap_open, gap_extend, bonus},
                      device, static_cast<cudaStream_t>(stream));
@@ -722,4 +852,42 @@ extern "C" int banded_dp_windows(int device, const void* windows,
   return (int)launch(src, static_cast<int32_t*>(out), N, RL, (RL + 7) / 8 * 8,
                      B, Scoring{match, mismatch, gap_open, gap_extend, bonus},
                      device, static_cast<cudaStream_t>(stream));
+}
+
+// banded_dp_qual_packed: the quality-adjusted DP on the packed words. As
+// banded_dp_packed, with quals (R, RL) uint8 phred in the reads' forward
+// orientation and match_tab, mism_tab, bonus_tab (nq,) int32 (1 <= nq <=
+// 128; the mismatch scores signed). Always the int32 kernel; counted by
+// the wrapper, not by banded_dp_launches.
+extern "C" int banded_dp_qual_packed(
+    int device, const void* text, long long T, const void* reads,
+    const void* reads_rc, const void* quals, const void* rlen,
+    const void* start, const void* lo, const void* hi, const void* rev,
+    const void* valid, const void* match_tab, const void* mism_tab,
+    const void* bonus_tab, int nq, void* out, int R, int C, int RL, int B,
+    int gap_open, int gap_extend, void* stream) {
+  const long long N = (long long)R * C;
+  if (N == 0) return (int)cudaSuccess;
+  if (nq < 1 || nq > kMaxQualTab) return (int)cudaErrorInvalidValue;
+  const cudaError_t set = use_device(device);
+  if (set != cudaSuccess) return (int)set;
+  const auto src = text_source<true>(text, T, reads, reads_rc, rlen, start,
+                                     lo, hi, rev, valid, C, RL);
+  const Scoring sc{0, 0, gap_open, gap_extend, 0};
+  const auto* q = static_cast<const uint8_t*>(quals);
+  const auto* mt = static_cast<const int32_t*>(match_tab);
+  const auto* mm = static_cast<const int32_t*>(mism_tab);
+  const auto* bt = static_cast<const int32_t*>(bonus_tab);
+  auto* o = static_cast<int32_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (B) {
+    case 8: err = launch_qual<8>(src, q, mt, mm, bt, nq, o, N, RL, sc, st);
+      break;
+    case 12: err = launch_qual<12>(src, q, mt, mm, bt, nq, o, N, RL, sc, st);
+      break;
+    case 16: err = launch_qual<16>(src, q, mt, mm, bt, nq, o, N, RL, sc, st);
+      break;
+  }
+  return (int)err;
 }

@@ -29,9 +29,10 @@ become the padding bounds (SURVEY.md §7 design stance).
 
 Ported from vg_tpu/map/giraffe.py: the device work (text upload, resident
 index arrays, the packed single-end steps with host or device seeding, the
-DP dispatch) runs in torch on the mapper's device, whose banded DP is the
-CUDA kernel of ops/cuda_align.py and whose device seeding runs the kernels
-of ops/cuda_seed.py. The host stages are unchanged.
+DP dispatch, quality-adjusted or not) runs in torch on the mapper's device,
+whose banded DP is the CUDA kernel of ops/cuda_align.py and whose device
+seeding runs the kernels of ops/cuda_seed.py. The host stages are
+unchanged.
 """
 from __future__ import annotations
 
@@ -60,10 +61,6 @@ from .project import PathPositionIndex, text_alignment_to_path
 # alternatives and inflates MAPQ on low-complexity reads (measured:
 # 6/256 wrong@60 at 75bp vs 2/256 at 16bp on 1mb1kgp low-entropy reads)
 PLACEMENT_TOL = 16
-
-QUAL_DP_TODO = ("the quality-adjusted DP is not ported to vg_tpu_torch yet "
-                "(ROADMAP.md, Queue 1: quality-adjusted DP)")
-
 
 def resolve_device(device=None) -> torch.device:
     """The mapper's device: None means the card. Asking for CUDA where
@@ -1210,8 +1207,31 @@ class GiraffeMapper:
             bonus=p.full_length_bonus)
 
     def _device_scores_qual(self, prep: dict, reads) -> "torch.Tensor":
-        """Quality-adjusted DP dispatch (QualAdjAligner role)."""
-        raise NotImplementedError(QUAL_DP_TODO)
+        """Quality-adjusted DP dispatch (ops/cuda_align.
+        banded_scores_qual_packed on the packed text, with tables from
+        ops/qualadj; reference QualAdjAligner, src/aligner.hpp:218): the
+        kernel's quality entry on the card, its plain version on the CPU.
+        Returns the (lazy) device tensor."""
+        from ..ops.cuda_align import banded_scores_qual_packed
+        from ..ops.qualadj import parse_quality, qual_tables
+
+        p = self.params
+        mt, mm, bt = qual_tables(p.match, p.mismatch, p.full_length_bonus)
+        Rpad, RL = prep["reads_arr"].shape
+        quals = np.zeros((Rpad, RL), np.uint8)
+        for i, r in enumerate(reads):
+            q = parse_quality(r.quality)[:RL]
+            quals[i, : len(q)] = q
+        put = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                        device=self.device)
+        return banded_scores_qual_packed(
+            self.text_packed_dev, len(self.haps.text),
+            put(prep["reads_arr"]), put(prep["reads_rc_arr"]), put(quals),
+            put(prep["rlens"]), put(prep["cand_start"]), put(prep["cand_lo"]),
+            put(prep["cand_hi"]), put(prep["cand_rev"]),
+            put(prep["cand_valid"]), put(mt), put(mm), put(bt),
+            band_radius=p.band_radius, gap_open=p.gap_open,
+            gap_extend=p.gap_extend)
 
     def rescore_candidates(self, sb: "ScoredBatch",
                            cand_start: np.ndarray, cand_lo: np.ndarray,

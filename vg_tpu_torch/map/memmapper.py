@@ -10,7 +10,9 @@ batched banded DP, pairing, MAPQ, and emission machinery as the giraffe
 engine — only the seeding stage differs (MEMs instead of minimizers),
 which is exactly the relationship the two mappers have in the reference.
 
-Copied from vg_tpu/map/memmapper.py.
+From vg_tpu/map/memmapper.py, with one change: `MEMMapper` takes the
+mapper's `device` (None = the card, "cpu" for the plain versions) and
+passes it to `GiraffeMapper`, whose DP it shares.
 """
 from __future__ import annotations
 
@@ -336,12 +338,14 @@ class MEMMapper(GiraffeMapper):
 
     def __init__(self, haps: HaplotypeSet, mem_index: MEMIndex,
                  params: Optional[GiraffeParams] = None,
-                 ref_path_names: Optional[List[str]] = None):
+                 ref_path_names: Optional[List[str]] = None,
+                 device=None):
         from ..index.minimizer import MinimizerIndex
 
         # the giraffe base class wants a minimizer index only for its own
         # seeding, which we replace wholesale; give it an empty one
-        super().__init__(haps, MinimizerIndex(), params, ref_path_names)
+        super().__init__(haps, MinimizerIndex(), params, ref_path_names,
+                         device=device)
         self.mem_index = mem_index
 
     def _seed_batch(self, codes2d: np.ndarray):

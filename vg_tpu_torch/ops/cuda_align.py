@@ -16,7 +16,12 @@ instructions:
   gathered from the byte text; plain version ops/align.banded_scores;
 - `banded_scores_windows` (pallas_align.banded_scores_pallas): pre-gathered
   windows; plain version `banded_scores_windows_ref` (ops/align.banded_dp
-  on the TPU kernel's padded rows).
+  on the TPU kernel's padded rows);
+- `banded_scores_qual_packed`: the quality-adjusted DP on the packed text,
+  an entry of the same kernel body with per-row scores from the phred
+  tables. It replaces no TPU kernel: vg_tpu runs it as an XLA scan
+  (vg_tpu.ops.align.banded_scores_qual). Plain version
+  `banded_scores_qual_packed_ref`.
 
 Each launches the kernel for CUDA tensors and runs its plain version for
 CPU tensors — the device of the tensors decides, nothing falls back. The
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from . import cuda_build
-from .align import SENTINEL, _score_windows, banded_dp, banded_scores
+from .align import (SENTINEL, _score_windows, banded_dp, banded_scores,
+                    score_windows_qual)
 from .dp_cases import BLOCK_SLOTS
 
 _SRC = cuda_build.PKG / "csrc" / "banded_dp.cu"
@@ -43,6 +49,13 @@ RADII = (8, 12, 16)        # band radii the kernel is instantiated for
 # whose values fit int16, the main path's among them (the int32 route's
 # cell takes 7.5).
 OPS_PER_CELL = 4.25
+# The quality entry runs the int32 route: 7.5 instructions a cell, and a
+# row's scores from the tables: the oriented quality's index (2), its load
+# (1), the clip to the tables (1), two table reads (2) and the two sums
+# with the gap open (2).
+OPS_PER_CELL_INT32 = 7.5
+QUAL_OPS_PER_ROW = 8
+MAX_QUAL_TAB = 128         # entries of a quality table the kernel holds
 LANES = 128                # banded_scores_windows: N is a multiple of this
 
 _lib = None
@@ -84,6 +97,12 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn = lib.banded_dp_qual_packed
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
+                       + [ctypes.c_void_p] * 12 + [ctypes.c_int]
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         lib.banded_dp_launches.restype = ctypes.c_longlong
         lib.banded_dp_launches.argtypes = [ctypes.c_int]
@@ -197,17 +216,120 @@ def banded_scores_packed_ref(
     gather (masked to [lo, hi) ∩ [0, T)) and the same banded DP
     (ops/align.banded_dp), on whatever device the tensors live."""
     R, RL = reads.shape
-    TW = RL + 2 * band_radius
+    win = packed_windows(text_packed, T, cand_start, cand_lo, cand_hi,
+                         RL + 2 * band_radius)
+    s = _score_windows(win, reads, reads_rc, rlen[:R], cand_rev, band_radius,
+                       match, mismatch, gap_open, gap_extend, bonus)
+    return torch.where(cand_valid, s, -1).to(torch.int32)
+
+
+def packed_windows(text_packed: torch.Tensor, T: int,
+                   cand_start: torch.Tensor, cand_lo: torch.Tensor,
+                   cand_hi: torch.Tensor, TW: int) -> torch.Tensor:
+    """(R, C, TW) uint8 windows read from the packed words, masked to
+    [lo, hi) ∩ [0, T) with the sentinel, as the kernel reads them."""
     pos = (cand_start.to(torch.int64)[:, :, None]
-           + torch.arange(TW, device=reads.device))
+           + torch.arange(TW, device=cand_start.device))
     ok = ((pos >= cand_lo[:, :, None]) & (pos < cand_hi[:, :, None])
           & (pos >= 0) & (pos < T))
     nw = text_packed.shape[0]
     words = text_packed[(pos >> 3).clamp(0, nw - 1)].to(torch.int64)
     nib = ((words & 0xFFFFFFFF) >> ((pos & 7) * 4)) & 15
-    win = torch.where(ok, nib, SENTINEL).to(torch.uint8)
-    s = _score_windows(win, reads, reads_rc, rlen[:R], cand_rev, band_radius,
-                       match, mismatch, gap_open, gap_extend, bonus)
+    return torch.where(ok, nib, SENTINEL).to(torch.uint8)
+
+
+def banded_scores_qual_packed(
+    text_packed: torch.Tensor,  # (ceil(T/8)+2,) int32, pack_text() output
+    T: int,                     # true text length in bases
+    reads: torch.Tensor, reads_rc: torch.Tensor,
+    quals: torch.Tensor,        # (R, RL) uint8 phred, forward orientation
+    rlen: torch.Tensor,
+    cand_start: torch.Tensor, cand_lo: torch.Tensor, cand_hi: torch.Tensor,
+    cand_rev: torch.Tensor, cand_valid: torch.Tensor,
+    match_tab: torch.Tensor, mism_tab: torch.Tensor, bonus_tab: torch.Tensor,
+    *, band_radius: int = 16, gap_open: int = 6,
+    gap_extend: int = 1) -> torch.Tensor:
+    """The quality-adjusted DP on the packed text: the contract of
+    vg_tpu.ops.align.banded_scores_qual (an XLA scan there; ops/align.py
+    has its torch counterpart). The tables are (Q+1,) int32 vectors
+    indexed by phred (ops/qualadj.qual_tables), the mismatch signed.
+    Returns (R, C) int32 scores, -1 on invalid slots. CUDA tensors launch
+    the kernel's int32 route with per-row scores (banded_dp_qual_packed,
+    counted in `banded_scores_qual_packed.launches`); CPU tensors run the
+    plain version `banded_scores_qual_packed_ref`."""
+    args = (reads, reads_rc, quals, rlen, cand_start, cand_lo, cand_hi,
+            cand_rev, cand_valid, match_tab, mism_tab, bonus_tab)
+    kw = dict(band_radius=band_radius, gap_open=gap_open,
+              gap_extend=gap_extend)
+    dev = text_packed.device
+    if dev.type == "cpu":
+        return banded_scores_qual_packed_ref(text_packed, T, *args, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"banded_scores_qual_packed: unsupported device "
+                         f"{dev}")
+    if band_radius not in RADII:
+        raise ValueError(f"the banded-DP kernel is instantiated for band "
+                         f"radii {RADII}, not {band_radius}")
+    R, RL = reads.shape
+    C = cand_start.shape[1]
+    if rlen.dim() != 1 or rlen.shape[0] < R:
+        raise ValueError(f"rlen must be 1-D with at least {R} entries")
+    rlen = rlen[:R]
+    _check(text_packed, "text", torch.int32, text_packed.shape, dev)
+    if text_packed.dim() != 1 or text_packed.shape[0] * 8 < T:
+        raise ValueError("text must be 1-D and hold T bases")
+    _check(reads, "reads", torch.uint8, (R, RL), dev)
+    _check(reads_rc, "reads_rc", torch.uint8, (R, RL), dev)
+    _check(quals, "quals", torch.uint8, (R, RL), dev)
+    _check(rlen, "rlen", torch.int32, (R,), dev)
+    for name, t in (("cand_start", cand_start), ("cand_lo", cand_lo),
+                    ("cand_hi", cand_hi)):
+        _check(t, name, torch.int32, (R, C), dev)
+    _check(cand_rev, "cand_rev", torch.bool, (R, C), dev)
+    _check(cand_valid, "cand_valid", torch.bool, (R, C), dev)
+    nq = match_tab.shape[0]
+    if not 1 <= nq <= MAX_QUAL_TAB:
+        raise ValueError(f"quality tables of {nq} entries; the kernel "
+                         f"takes 1 to {MAX_QUAL_TAB}")
+    for name, t in (("match_tab", match_tab), ("mism_tab", mism_tab),
+                    ("bonus_tab", bonus_tab)):
+        _check(t, name, torch.int32, (nq,), dev)
+    out = torch.empty((R, C), dtype=torch.int32, device=dev)
+    index, stream = cuda_build.launch_args(text_packed)
+    err = library().banded_dp_qual_packed(
+        index, text_packed.data_ptr(), int(T), reads.data_ptr(),
+        reads_rc.data_ptr(), quals.data_ptr(), rlen.data_ptr(),
+        cand_start.data_ptr(), cand_lo.data_ptr(), cand_hi.data_ptr(),
+        cand_rev.data_ptr(), cand_valid.data_ptr(), match_tab.data_ptr(),
+        mism_tab.data_ptr(), bonus_tab.data_ptr(), nq, out.data_ptr(), R, C,
+        RL, band_radius, gap_open, gap_extend, stream)
+    if err != 0:
+        raise RuntimeError(f"banded_dp_qual_packed launch failed: CUDA error "
+                           f"{err}")
+    banded_scores_qual_packed.launches += 1
+    return out
+
+
+banded_scores_qual_packed.launches = 0
+
+
+def banded_scores_qual_packed_ref(
+    text_packed: torch.Tensor, T: int, reads: torch.Tensor,
+    reads_rc: torch.Tensor, quals: torch.Tensor, rlen: torch.Tensor,
+    cand_start: torch.Tensor, cand_lo: torch.Tensor, cand_hi: torch.Tensor,
+    cand_rev: torch.Tensor, cand_valid: torch.Tensor,
+    match_tab: torch.Tensor, mism_tab: torch.Tensor, bonus_tab: torch.Tensor,
+    *, band_radius: int = 16, gap_open: int = 6,
+    gap_extend: int = 1) -> torch.Tensor:
+    """Plain PyTorch version of the quality entry: the packed-word window
+    gather of banded_scores_packed_ref, then ops/align's quality-adjusted
+    DP (score_windows_qual), on whatever device the tensors live."""
+    R, RL = reads.shape
+    win = packed_windows(text_packed, T, cand_start, cand_lo, cand_hi,
+                         RL + 2 * band_radius)
+    s = score_windows_qual(win, reads, reads_rc, quals, rlen, cand_rev,
+                           match_tab, mism_tab, bonus_tab, band_radius,
+                           gap_open, gap_extend)
     return torch.where(cand_valid, s, -1).to(torch.int32)
 
 
@@ -309,16 +431,20 @@ def banded_scores_windows_ref(
 
 def dp_work(reads: torch.Tensor, rlen: torch.Tensor, cand_valid,
             text_entries: int, band_radius: int, *,
-            source: str = "packed") -> tuple:
+            source: str = "packed", tab_entries: int = 0) -> tuple:
     """(bytes, instructions) one call needs on these inputs: every input
     read once and the output written once; OPS_PER_CELL instructions (the
     16x2 DPX cell) for each band cell of each valid slot's rows.
 
     source "packed" / "bytes": candidate tables (R, C) over a text of
     `text_entries` int32 words / uint8 codes; each valid slot runs
-    min(rlen, RL) rows. source "windows": `reads` (N, RL) oriented,
-    `text_entries` the windows' N * TW bytes, `cand_valid` None; each slot
-    runs min(rlen, RLP) rows, RLP = RL rounded up to 8."""
+    min(rlen, RL) rows. source "qual": the quality entry on packed words,
+    which also reads the (R, RL) qualities and three tables of
+    `tab_entries` int32 values, and runs the int32 route:
+    OPS_PER_CELL_INT32 a cell and QUAL_OPS_PER_ROW a valid slot's row.
+    source "windows": `reads` (N, RL) oriented, `text_entries` the
+    windows' N * TW bytes, `cand_valid` None; each slot runs
+    min(rlen, RLP) rows, RLP = RL rounded up to 8."""
     R, RL = reads.shape
     W = 2 * band_radius + 1
     if source == "windows":
@@ -328,7 +454,11 @@ def dp_work(reads: torch.Tensor, rlen: torch.Tensor, cand_valid,
         return nbytes, round(OPS_PER_CELL * int(rows.sum()) * W)
     C = cand_valid.shape[1]
     rows = rlen[:R].to(torch.int64).clamp(0, RL)
-    cells = int((cand_valid.to(torch.int64) * rows[:, None]).sum()) * W
-    nbytes = ((4 if source == "packed" else 1) * text_entries + 2 * R * RL
+    slot_rows = int((cand_valid.to(torch.int64) * rows[:, None]).sum())
+    nbytes = ((1 if source == "bytes" else 4) * text_entries + 2 * R * RL
               + 4 * R + R * C * (3 * 4 + 2) + 4 * R * C)
-    return nbytes, round(OPS_PER_CELL * cells)
+    if source == "qual":
+        return (nbytes + R * RL + 3 * 4 * tab_entries,
+                round(OPS_PER_CELL_INT32 * slot_rows * W
+                      + QUAL_OPS_PER_ROW * slot_rows))
+    return nbytes, round(OPS_PER_CELL * slot_rows * W)

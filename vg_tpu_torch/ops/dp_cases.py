@@ -8,6 +8,11 @@ BLOCK_SLOTS (read-major: slot n is read n // C, candidate n % C), and runs
 only the valid ones, two a thread where the scoring allows; so the cases
 set the valid flags BLOCK_SLOTS slots at a time: every slot valid, none,
 one, every other one, and a random half.
+
+`qual_case` adds per-base qualities for the quality entry
+(banded_scores_qual_packed): phred 0-2 (the tables' zeros), 3-60, 61-93
+(past the tables' end), and quality strings shorter than the read;
+`signed_tables` gives tables whose mismatch scores take either sign.
 """
 from __future__ import annotations
 
@@ -109,3 +114,40 @@ def windows_of(args, B: int):
                   np.repeat(reads, C, 0)).astype(np.uint8)
     rl = np.where(valid.reshape(-1), np.repeat(rlen, C), 0).astype(np.int32)
     return win, rd, rl
+
+
+def read_quals(rng, rlen, RL: int) -> np.ndarray:
+    """(R, RL) uint8 phred as the mappers build them: each read's quality
+    string parsed into columns [0, len) and zeros past it. Qualities are
+    drawn from 0-2, 3-60 and 61-93; a fifth of the strings are shorter
+    than their read."""
+    R = len(rlen)
+    kind = rng.random((R, RL))
+    q = np.where(kind < 0.1, rng.integers(0, 3, (R, RL)),
+                 np.where(kind < 0.85, rng.integers(3, 61, (R, RL)),
+                          rng.integers(61, 94, (R, RL))))
+    qlen = np.asarray(rlen, np.int64).copy()
+    short = rng.random(R) < 0.2
+    qlen[short] = rng.integers(0, np.maximum(qlen[short], 1))
+    q[np.arange(RL)[None, :] >= qlen[:, None]] = 0
+    return q.astype(np.uint8)
+
+
+def qual_case(rng, R: int = 160, C: int = 8, RL: int = 160, B: int = 16,
+              T: int = 50_000, L: int = 150, text=None):
+    """block_case's (text, reads, reads_rc, rlen, start, lo, hi, rev,
+    valid) with read_quals after reads_rc: (text, reads, reads_rc, quals,
+    rlen, ...). Both strands, rlen 0 on valid slots, short reads, N bases
+    and windows cut by lo / hi or by the text's ends come from
+    block_case."""
+    text, reads, reads_rc, rlen, *cand = block_case(rng, R, C, RL, B, T, L,
+                                                    text)
+    return (text, reads, reads_rc, read_quals(rng, rlen, RL), rlen, *cand)
+
+
+def signed_tables(rng, nq: int = 61):
+    """(match, mismatch, bonus) int32 tables of nq entries: matches 0-3,
+    mismatches -6 to +2 (either sign), bonuses 0-7."""
+    return (rng.integers(0, 4, nq).astype(np.int32),
+            rng.integers(-6, 3, nq).astype(np.int32),
+            rng.integers(0, 8, nq).astype(np.int32))
