@@ -39,7 +39,16 @@ kernels' launch counts set to 0 just before it and read just after:
   sidecar;
 - pack and call: sample s1's reads at 30x diploid depth mapped on the
   card (host seeding), Packer, SnarlCaller, genotype concordance against
-  the fixture's VCF.
+  the fixture's VCF;
+- the command line (vg_tpu_torch.cli.main.main, in-process, the card as
+  VGTPU_PLATFORM unset gives it) on the fixture's bundle written into a
+  temporary directory and reads written as FASTQ: giraffe -2 on the
+  paired path's 9 x 6144 pairs (records equal to map_pairs_encoded_mt on
+  a fresh mapper, placement, reads/s beside the library path's), map -A
+  on the vg map reads (records equal to MEMMapper's), mpmap single-end,
+  -2 and -A on 1,024 reads or pairs (the card against the CPU on 64),
+  then surject -b (against Surjector), pack, call, sim, giraffe -G,
+  gamcompare and mapeval -n 2000 on the files they made.
 
 It checks the records (count, placement against the simulated truth, the
 card against the CPU, the long-read engines against each other).
@@ -67,6 +76,7 @@ CUDA it exits with 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import re
@@ -85,6 +95,7 @@ LR_READS, LR_WARM, LR_LEN = 512, 16, 10_000   # bench.py's long-read sidecar
 VGMAP_BATCH, VGMAP_BATCHES = 512, 8   # vg map: the CLI's --batch-size
 SURJECT_N = 8192          # bench.py's surject sidecar: GAM records surjected
 CALL_DEPTH = 30           # pack + call: sample s1's diploid read depth
+PLACE_EVERY = 4           # CLI giraffe -2: placement on every 4th record
 # H100 SXM peaks. No instruction mix issues more than one warp
 # instruction per scheduler per clock: 132 SMs x 4 schedulers x 32 lanes
 # x 1.98 GHz = 33.4 T lane-operations/s is the integer DP's ceiling (the
@@ -607,24 +618,29 @@ def phase_kernel(text, real_batches):
 
 def placed(mapper, recs, truth, tol=100):
     """Fraction of records whose first refpos lies within tol bp of its
-    mate's truth (recs interleave mate 1, mate 2 per pair). A reverse-
-    strand refpos names the read's first base, one read length to the
-    right of its leftmost one."""
+    mate's truth (recs interleave mate 1, mate 2 per pair)."""
     from vg_tpu_torch.io.gam import Alignment
 
-    want = truth.reshape(-1)
+    return placed_alns(mapper, [Alignment.decode(bytes(r)) for r in recs],
+                       truth.reshape(-1), tol)
+
+
+def placed_alns(mapper, alns, want, tol=100):
+    """Fraction of alignments whose first refpos lies within tol bp of
+    their truth `want` (original-text coordinates). A reverse-strand
+    refpos names the read's first base, one read length to the right of
+    its leftmost one."""
     _, ro = mapper._diag_refproj(
         (want - mapper.params.band_radius)[:, None].astype(np.int64),
         np.ones((len(want), 1), bool))
     ok = 0
-    for k, rec in enumerate(recs):
-        aln = Alignment.decode(bytes(rec))
+    for k, aln in enumerate(alns):
         if not aln.refpos:
             continue
         rp = aln.refpos[0]
         want_k = int(ro[k, 0]) + (len(aln.sequence) if rp.is_reverse else 0)
         ok += abs(int(rp.offset) - want_k) <= tol
-    return ok / max(len(recs), 1)
+    return ok / max(len(alns), 1)
 
 
 def phase_main_path(haps, idx, mem, pairs, truth, bs, n_batches,
@@ -1464,8 +1480,9 @@ def phase_vg_map(haps, mem, card, seed):
     launch counts set to 0 before them. Checks: the quality entry
     launched once a batch, >= 95% placed against the simulator's truth,
     the first timed batch's records byte-identical to a device="cpu"
-    twin's. Returns the numbers and the quality entry's inputs on the
-    warmup batch (captured from the wrapper call)."""
+    twin's. Returns the numbers (with the timed reads and their records
+    as JSON, the CLI phase's reference) and the quality entry's inputs on
+    the warmup batch (captured from the wrapper call)."""
     from vg_tpu_torch.map.giraffe import GiraffeParams
     from vg_tpu_torch.map.memmapper import MEMMapper
     from vg_tpu_torch.ops import cuda_align
@@ -1494,11 +1511,12 @@ def phase_vg_map(haps, mem, card, seed):
     assert len(captured) == 1 and len(warm) == bs, (len(captured), len(warm))
     log(f"vg map warmup: {bs} reads in {time.time() - t0:.2f} s")
     reset_launches()
-    recs = []
+    alns, recs = [], []
     t0 = time.time()
     for k in range(1, VGMAP_BATCHES + 1):
-        recs += [a.encode() for a in mapper.map_batch(
-            reads[k * bs : (k + 1) * bs])]
+        out = mapper.map_batch(reads[k * bs : (k + 1) * bs])
+        alns += out
+        recs += [a.encode() for a in out]
     torch.cuda.synchronize()
     dt = time.time() - t0
     n = kernel_launches()
@@ -1524,8 +1542,9 @@ def phase_vg_map(haps, mem, card, seed):
     assert len(cpu_recs) == bs and n_diff == 0, \
         f"vg map: {n_diff} records differ between the card and the CPU"
     return dict(reads_per_s=len(recs) / dt, seconds=dt, placed=frac,
-                launches=n["banded_dp_qual"], busy_ms=busy,
-                wall_s=wall), captured[0]
+                launches=n["banded_dp_qual"], busy_ms=busy, wall_s=wall,
+                reads=reads[bs:], json=[a.to_json_str() for a in alns]), \
+        captured[0]
 
 
 def qual_case_tensors(rng, text, R, B, tabs=None):
@@ -1723,6 +1742,389 @@ def phase_pack_call(haps, idx, mem, vcf, card, seed):
                 call_s=dt_call, concordance=ok / tot, sites=tot)
 
 
+# ------------------------------------------------------------ command line
+
+def cli_run(argv, stdout=None, platform=None):
+    """One command of the port's command line, in-process as
+    `python -m vg_tpu_torch.cli` runs it: VGTPU_PLATFORM unset (the card)
+    or `platform`, the launch counts set to 0 just before it and read just
+    after, its standard output to the file `stdout`. Returns (seconds,
+    launches)."""
+    import os
+
+    from vg_tpu_torch.cli.main import main as cli_main
+
+    os.environ.pop("VGTPU_PLATFORM", None)
+    if platform is not None:
+        os.environ["VGTPU_PLATFORM"] = platform
+    reset_launches()
+    t0 = time.time()
+    try:
+        with open(stdout or os.devnull, "w") as f, \
+                contextlib.redirect_stdout(f):
+            rc = cli_main(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop("VGTPU_PLATFORM", None)
+    dt = time.time() - t0
+    n = kernel_launches()
+    assert rc == 0, (argv, rc)
+    return dt, n
+
+
+def launched(n) -> str:
+    """The kernels that launched, with their counts, for the log."""
+    return json.dumps({k: v for k, v in n.items() if v})
+
+
+def write_fastq(path, reads):
+    with open(path, "w") as f:
+        for r in reads:
+            f.write(f"@{r.name}\n{r.sequence}\n+\n"
+                    f"{r.quality or 'I' * len(r.sequence)}\n")
+
+
+def ticked_pairs_pipeline(ticks):
+    """map_pairs_encoded_mt with the wall time and size of each batch it
+    yields appended to `ticks` (the steady rate leaves out the first)."""
+    from vg_tpu_torch.parallel import pipeline
+
+    stream = pipeline.map_pairs_encoded_mt
+
+    def ticked(*a, **kw):
+        for out in stream(*a, **kw):
+            ticks.append((time.time(), len(out)))
+            yield out
+    return stream, ticked
+
+
+def steady_rate(ticks) -> float:
+    n = sum(k for _, k in ticks[1:])
+    return n / (ticks[-1][0] - ticks[0][0]) if len(ticks) > 1 else 0.0
+
+
+@contextlib.contextmanager
+def batch_paths(kinds):
+    """Record which way each pair's batch went through the paired
+    pipeline (PairedGiraffeMapper.stage_rescue's item kind: "warmup" and
+    "main" on the host while the fragment model learns, "main_dev" through
+    the device step after), by the pair's name. Which batches the seeder
+    scores before the model is finalized depends on the threads' timing,
+    so two runs on the same input may take different ways."""
+    from vg_tpu_torch.map.paired import PairedGiraffeMapper
+
+    orig = PairedGiraffeMapper.stage_rescue
+
+    def stage_rescue(self, item, *a):
+        out = orig(self, item, *a)
+        for r1, _ in item[1]:
+            kinds[r1.name] = out[0]
+        return out
+    PairedGiraffeMapper.stage_rescue = stage_rescue
+    try:
+        yield kinds
+    finally:
+        PairedGiraffeMapper.stage_rescue = orig
+
+
+@contextlib.contextmanager
+def timed_method(cls, name, acc):
+    """Add the seconds each call of cls.name takes to acc[0] (summed over
+    the threads that call it)."""
+    orig = getattr(cls, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            acc[0] += time.perf_counter() - t0
+    setattr(cls, name, timed)
+    try:
+        yield acc
+    finally:
+        setattr(cls, name, orig)
+
+
+def json_diff(a, b) -> str:
+    """The fields in which two GAM records differ, for the log."""
+    from vg_tpu_torch.io.gam import Alignment
+
+    if b is None:
+        return "missing"
+    ja, jb = Alignment.decode(a).to_json(), Alignment.decode(b).to_json()
+    keys = sorted(k for k in set(ja) | set(jb) if ja.get(k) != jb.get(k))
+    return ", ".join(f"{k} {str(ja.get(k))[:80]} vs {str(jb.get(k))[:80]}"
+                     for k in keys)
+
+
+def gam_name(rec: bytes) -> str:
+    """A GAM record's name (Alignment field 3) without decoding the rest."""
+    from vg_tpu_torch.io.wire import iter_fields
+
+    for f, _, v in iter_fields(rec):
+        if f == 3:
+            return bytes(v).decode()
+    return ""
+
+
+def gam_records(path):
+    from vg_tpu_torch.io.gam import read_messages
+
+    return [bytes(r) for r in read_messages(pathlib.Path(path).read_bytes())]
+
+
+def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
+              device="cuda"):
+    """The port's command line, `python -m vg_tpu_torch.cli`, driven
+    in-process on the fixture's bundle (written with io.native into a
+    temporary directory) and reads written as FASTQ, each command with the
+    launch counts set to 0 before it and read after it:
+
+    1. giraffe -2 on the paired path's pairs, batch `bs`: the GAM equal,
+       read by read, to map_pairs_encoded_mt on a fresh PairedGiraffeMapper
+       with the same parsed pairs and batches wherever a read's batch
+       went the same way through the pipeline in both runs (batch_paths),
+       >= 95% placed, banded_dp launched at least twice a batch; reads/s
+       overall and steady beside the library path's, with the FASTQ parse
+       and the one-time setup (bundle load, MEM fallback index) timed
+       apart;
+    2. map -A -o json on the `vg map` phase's timed reads: the quality
+       entry launched once a batch, the records equal to that phase's
+       MEMMapper(qual_adjusted=True) records;
+    3. mpmap on 1,024 of those reads, mpmap -2 on 1,024 pairs with
+       qualities (quality entry), mpmap -A (packed DP, no quality entry):
+       one GAMP record a read; the first 64 reads' records equal to a
+       VGTPU_PLATFORM=cpu run on them;
+    4. surject -b (BAM equal to Surjector's on the first records), pack,
+       call, sim + giraffe -G + gamcompare, mapeval -n 2000.
+    With device="cpu" every command runs with VGTPU_PLATFORM=cpu and no
+    launch is asserted (a rehearsal of the phase on a machine without a
+    card)."""
+    import io
+    import json as _json
+    import tempfile
+
+    from vg_tpu_torch.cli.main import _load_bundle
+    from vg_tpu_torch.io import bam, native
+    from vg_tpu_torch.io.fastq import Read, iter_fastq_paired
+    from vg_tpu_torch.io.gam import Alignment
+    from vg_tpu_torch.io.gamp import read_gamp
+    from vg_tpu_torch.map.giraffe import GiraffeMapper, GiraffeParams
+    from vg_tpu_torch.map.memmapper import MEMIndex
+    from vg_tpu_torch.map.paired import PairedGiraffeMapper
+    from vg_tpu_torch.parallel import pipeline
+    from vg_tpu_torch.surject.surjector import Surjector
+
+    on_card = device == "cuda"
+    plat = None if on_card else "cpu"
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory(prefix="vgtpu_cli_")
+    d = pathlib.Path(tmp.name)
+    x = str(d / "x")
+    native.save_graph(x + ".vgz.npz", haps.graph)
+    native.save_haplotypes(x + ".hpt.npz", haps)
+    native.save_minimizer(x + ".min.npz", idx)
+    rng = np.random.default_rng(seed + 17)
+
+    # 1. paired giraffe: the CLI, then the library path on the same input
+    fq1, fq2 = str(d / "r1.fq"), str(d / "r2.fq")
+    write_fastq(fq1, [a for a, _ in pairs])
+    write_fastq(fq2, [b for _, b in pairs])
+    t0 = time.time()
+    parsed = list(iter_fastq_paired(fq1, fq2))
+    t_parse = time.time() - t0
+    ticks, kinds_cli, cap_cli = [], {}, [0.0]
+    stream, ticked = ticked_pairs_pipeline(ticks)
+    pipeline.map_pairs_encoded_mt = ticked
+    try:
+        with batch_paths(kinds_cli), \
+                timed_method(GiraffeMapper, "apply_mapq_caps", cap_cli):
+            dt, n = cli_run(["giraffe", "-Z", x, "-f", fq1, "-2", fq2,
+                             "-B", str(bs), "--output",
+                             str(d / "cli.gam")], platform=plat)
+    finally:
+        pipeline.map_pairs_encoded_mt = stream
+    cli_steady = steady_rate(ticks)
+    recs = gam_records(d / "cli.gam")
+    t0 = time.time()
+    _load_bundle(x)
+    t_load = time.time() - t0
+    t0 = time.time()
+    MEMIndex(haps, max_mem_hits=max(64, 4 * haps.count))    # as giraffe's
+    t_mem = time.time() - t0
+    lib = PairedGiraffeMapper(GiraffeMapper(
+        haps, idx, GiraffeParams(batch_reads=bs), device=device))
+    ticks_lib, kinds_lib, want, cap_lib = [], {}, [], [0.0]
+    t0 = time.time()
+    with batch_paths(kinds_lib), \
+            timed_method(GiraffeMapper, "apply_mapq_caps", cap_lib):
+        for out in stream(lib, (parsed[i : i + bs]
+                                for i in range(0, len(parsed), bs))):
+            want += [bytes(r) for r in out]
+            ticks_lib.append((time.time(), len(out)))
+    dt_lib = time.time() - t0
+    # records by name: pairs held back while the fragment model learns
+    # come out after the stream, in the CLI and the library alike.
+    # Placement on every PLACE_EVERY-th record (Python decoding of all
+    # 110,592 would add about 12 s to the phase)
+    got, sample = {}, []
+    for k, r in enumerate(recs):
+        name = gam_name(r)
+        mate = int((name, 0) in got)
+        got[name, mate] = r
+        if k % PLACE_EVERY == 0:
+            sample.append((Alignment.decode(r), truth[int(name[1:]), mate]))
+    frac = placed_alns(lib.mapper, [a for a, _ in sample],
+                       np.array([t for _, t in sample], np.int64))
+    lib_by = {}
+    for r in want:
+        name = gam_name(r)
+        lib_by[name, int((name, 0) in lib_by)] = r
+    diff = sorted(k for k in got if got[k] != lib_by.get(k))
+    same_path = [k for k in diff if kinds_cli[k[0]] == kinds_lib[k[0]]]
+    path_seq = lambda kinds: [kinds[p.name] for p, _ in parsed[::bs]]
+    log(f"cli giraffe -2 (batch {bs}, FASTQ with base qualities): "
+        f"{len(recs)} records in {dt:.2f} s = {len(recs) / dt:.0f} reads/s "
+        f"overall, {cli_steady:.0f} steady; FASTQ parse of both files "
+        f"alone {t_parse:.2f} s; one-time setup alone: bundle load "
+        f"{t_load:.2f} s, MEM fallback index {t_mem:.2f} s; library path "
+        f"(map_pairs_encoded_mt, fresh mapper, the parsed pairs) "
+        f"{len(want) / dt_lib:.0f} reads/s overall, "
+        f"{steady_rate(ticks_lib):.0f} steady; the explored-minimizer MAPQ "
+        f"cap (apply_mapq_caps, Python, reads with qualities) "
+        f"{cap_cli[0]:.2f} s in the CLI run and {cap_lib[0]:.2f} s in the "
+        f"library's, summed over the emitter threads; {100 * frac:.2f}% of "
+        f"{len(sample)} records (every {PLACE_EVERY}th) within 100 bp of "
+        f"truth; launches {launched(n)}, on {card}")
+    log(f"cli giraffe -2 vs the library path: {len(diff)} of {len(recs)} "
+        f"records differ, {len(same_path)} of them in batches both runs "
+        f"took the same way (batch paths, CLI {path_seq(kinds_cli)}, "
+        f"library {path_seq(kinds_lib)})"
+        + "".join(f"; {k[0]} mate {k[1] + 1}: "
+                  f"{json_diff(got[k], lib_by.get(k))}" for k in diff[:3]))
+    assert len(recs) == len(want) == 2 * len(pairs), (len(recs), len(want))
+    assert len(got) == len(lib_by) == len(recs)
+    assert not same_path, "cli giraffe -2 differs from the library path"
+    assert frac >= 0.95, frac
+    if on_card:
+        assert n["banded_dp"] >= 2 * (len(pairs) // bs - 1), n
+    del lib, want, parsed, lib_by, got
+
+    # 2. map -A: the vg map phase's reads, quality-adjusted (JSON out: the
+    # GAM stream of `map` scores through score_reads_packed, which has no
+    # quality entry in vg_tpu either)
+    qreads = vgmap["reads"]
+    qfq = str(d / "q.fq")
+    write_fastq(qfq, qreads)
+    dt, n = cli_run(["map", "-A", "-Z", x, "-f", qfq, "-o", "json"],
+                    stdout=str(d / "map.json"), platform=plat)
+    lines = (d / "map.json").read_text().splitlines()
+    n_diff = sum(1 for a, b in zip(lines, vgmap["json"]) if a != b)
+    log(f"cli map -A: {len(lines)} reads in {dt:.2f} s = "
+        f"{len(lines) / dt:.1f} reads/s (the SA built in the run), launches "
+        f"{launched(n)}; {n_diff} of {len(lines)} records differ from "
+        f"MEMMapper(qual_adjusted=True) in batches of {VGMAP_BATCH}, on "
+        f"{card}")
+    assert len(lines) == len(vgmap["json"]) == len(qreads), len(lines)
+    assert n_diff == 0, "cli map -A differs from MEMMapper"
+    if on_card:
+        assert n["banded_dp_qual"] >= len(qreads) // VGMAP_BATCH, n
+
+    # 3. mpmap: single-end, paired, -A; the card against the CPU
+    n_mp = 1024
+    q1k = str(d / "q1k.fq")
+    write_fastq(q1k, qreads[:n_mp])
+    q64 = str(d / "q64.fq")
+    write_fastq(q64, qreads[:64])
+    qual = lambda: "".join(chr(33 + int(q))
+                           for q in rng.integers(2, 41, 150))
+    pq = [(Read(a.name, a.sequence, qual()), Read(b.name, b.sequence, qual()))
+          for a, b in pairs[:n_mp]]
+    p1, p2 = str(d / "pq1.fq"), str(d / "pq2.fq")
+    write_fastq(p1, [a for a, _ in pq])
+    write_fastq(p2, [b for _, b in pq])
+    runs = {}
+    for label, argv, n_want in (
+            ("mpmap", ["-f", q1k], n_mp),
+            ("mpmap -2", ["-f", p1, "-2", p2], 2 * n_mp),
+            ("mpmap -A", ["-f", q1k, "-A"], n_mp)):
+        out = str(d / (label.replace(" ", "") + ".gamp"))
+        dt, n = cli_run(["mpmap", "-Z", x, *argv, "--output", out],
+                        platform=plat)
+        mps = [mp.encode() for mp in read_gamp(out)]
+        log(f"cli {label}: {len(mps)} multipath records in {dt:.2f} s = "
+            f"{n_want / dt:.1f} reads/s, launches {launched(n)}, on "
+            f"{card}")
+        assert len(mps) == n_want, (label, len(mps))
+        if on_card:
+            if label == "mpmap -A":
+                assert n["banded_dp"] > 0 and n["banded_dp_qual"] == 0, n
+            else:
+                assert n["banded_dp_qual"] > 0, n
+        runs[label] = mps
+    dt, _ = cli_run(["mpmap", "-Z", x, "-f", q64, "--output",
+                     str(d / "cpu.gamp")], platform="cpu")
+    cpu = [mp.encode() for mp in read_gamp(str(d / "cpu.gamp"))]
+    n_diff = sum(1 for a, b in zip(runs["mpmap"][:64], cpu) if a != b)
+    log(f"cli mpmap, card vs VGTPU_PLATFORM=cpu on the first 64 reads "
+        f"(CPU {dt:.2f} s): {n_diff} of {len(cpu)} records differ")
+    assert len(cpu) == 64 and n_diff == 0, "mpmap: card and CPU differ"
+
+    # 4. the tools on the files above
+    gam = str(d / "cli.gam")
+    dt, _ = cli_run(["surject", "-Z", x, "-i", gam, "-b",
+                     str(d / "cli.bam")], platform=plat)
+    _, refs, back = bam.read_bam(str(d / "cli.bam"))
+    head = [Alignment.decode(r) for r in recs[:SURJECT_N]]
+    sj = Surjector(haps.graph)
+    mine = sj.surject_batch(head)
+    buf = io.BytesIO()
+    bam.write_bam(buf, sj.header(), sj.ref_lengths(), mine)
+    _, _, mine_back = bam.read_bam(io.BytesIO(buf.getvalue()))
+    n_diff = sum(1 for a, b in zip(back, mine_back) if a.line() != b.line())
+    mapped = sum(1 for r in back if not r.flag & 0x4)
+    log(f"cli surject -b: {len(back)} records in {dt:.2f} s = "
+        f"{len(back) / dt:.1f} alns/s, {100 * mapped / len(back):.2f}% "
+        f"mapped; against Surjector on the first {len(mine)}: {n_diff} "
+        f"records differ, on {card}")
+    assert len(back) == len(recs) and refs == sj.ref_lengths()
+    assert n_diff == 0, "cli surject differs from Surjector"
+    assert mapped >= 0.9 * len(back), mapped
+    dt_pack, _ = cli_run(["pack", "-Z", x, "-g", gam, "-o",
+                          str(d / "cli.pack.npz")], platform=plat)
+    dt_call, _ = cli_run(["call", "-Z", x, "-k", str(d / "cli.pack.npz"),
+                          "-s", "s1"], stdout=str(d / "cli.vcf"),
+                         platform=plat)
+    body = [ln for ln in (d / "cli.vcf").read_text().splitlines()
+            if ln and not ln.startswith("#")]
+    log(f"cli pack: {len(recs)} alignments in {dt_pack:.2f} s = "
+        f"{len(recs) / dt_pack:.1f} alns/s; call {dt_call:.2f} s, "
+        f"{len(body)} VCF records, on {card}")
+    assert body, "cli call wrote no variant"
+    sim = str(d / "sim.gam")
+    cli_run(["sim", "-Z", x, "-n", "2000", "-l", "150", "-e", "0.01", "-s",
+             str(seed), "-a", "--output", sim], platform=plat)
+    dt, n = cli_run(["giraffe", "-Z", x, "-G", sim, "--output",
+                     str(d / "sim_mapped.gam")], platform=plat)
+    cli_run(["gamcompare", str(d / "sim_mapped.gam"), sim],
+            stdout=str(d / "cmp.json"), platform=plat)
+    cmp = _json.loads((d / "cmp.json").read_text().splitlines()[-1])
+    dt_me, n_me = cli_run(["mapeval", "-Z", x, "-n", "2000"],
+                          stdout=str(d / "mapeval.json"), platform=plat)
+    me = _json.loads((d / "mapeval.json").read_text().splitlines()[-1])
+    log(f"cli sim + giraffe -G + gamcompare: 2000 reads mapped in "
+        f"{dt:.2f} s (launches {launched(n)}), accuracy "
+        f"{cmp['accuracy']}; cli mapeval -n 2000: accuracy "
+        f"{me['accuracy']}, {me['wrong_mapq60']} wrong at MAPQ 60, "
+        f"{dt_me:.2f} s (launches {launched(n_me)}), on {card}")
+    assert cmp["total"] == 2000 and cmp["accuracy"] >= 0.9, cmp
+    assert me["total"] == 2000 and me["accuracy"] >= 0.9, me
+    tmp.cleanup()
+    log(f"cli phase {time.time() - t_phase:.1f} s on {card}")
+
+
 # the kernels the device-seeded path launches (banded_dp_bytes and
 # banded_dp_windows lie on no path: vg_tpu runs them only in benchmarks)
 SEEDED_PATH_KERNELS = ["banded_dp", "softcap_compact", "cluster_topc",
@@ -1864,6 +2266,9 @@ def main(argv=None) -> int:
     phase_surject(haps.graph, surject_recs, card)
     del surject_recs
     phase_pack_call(haps, idx, mem, vcf, card, args.seed)
+
+    # the command line: giraffe -2, map -A, mpmap, and the tools after them
+    phase_cli(haps, idx, pairs, truth, vgmap, card, args.seed)
     log(f"total {time.time() - t_start:.1f} s")
 
     rows = []
