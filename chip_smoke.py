@@ -14,6 +14,14 @@ entry also runs under make_paired_step's default score function, against
 the packed step. Then it drives the port's mapping paths, each with the
 kernels' launch counts set to 0 just before it and read just after:
 
+- the sharded steps (parallel/mesh.py's multi-device half, the byte-text
+  entry on every score) on the main path's first batch: on an NCCL mesh
+  of one rank, sharded_paired_step and sharded_map_step against the
+  replicated step; in this process, the text-sharded paired step on 4
+  text shards; rescue candidates from _rescue_begin scored on the mesh
+  and on 4 shards against the host scores; then the 4-shard step's and
+  the shard launches' device times against the replicated ones;
+
 - the host-seeded main path, paired 150 bp giraffe mapping: bench.py's
   pangenome (1 Mbp reference, 5 haplotypes), PairedGiraffeMapper warmed up
   until its fragment model is finalized, and 8 batches of 6144 simulated
@@ -1265,28 +1273,44 @@ def phase_dp_entries(text, real_batches):
     return out
 
 
+FRAG_MU, FRAG_SD = 450.0, 50.0   # the fixture's fragment model
+
+
+def step_mates(mates) -> list:
+    """The two mates of a prepared batch as the paired steps take them:
+    (reads, reads_rc, rlen, (start, lo, hi, rev, valid, refpath, refoff)),
+    numpy, the batch's own rows."""
+    out = []
+    for m in mates:
+        R = len(m["cand_refpath"])
+        a = [np.ascontiguousarray(m[k][:R])
+             for k in ("reads_arr", "reads_rc_arr", "rlens", "cand_start",
+                       "cand_lo", "cand_hi", "cand_rev", "cand_valid",
+                       "cand_refpath")]
+        out.append((a[0], a[1], a[2],
+                    (*a[3:], m["cand_refoff"][:R].astype(np.int32))))
+    return out
+
+
 def phase_byte_step(haps, mates):
     """make_paired_step() with its default score function, the byte-text
     DP (kernel 1c for CUDA tensors), against the step the mapper builds
     on the packed text (kernel 1) on the main path's first batch: every
-    output equal, MAPQs included. Returns 1c's launches in it."""
+    output equal, MAPQs included. Returns 1c's launches in it and the
+    step's outputs."""
     from vg_tpu_torch.ops import cuda_align
     from vg_tpu_torch.parallel.mesh import make_paired_step
 
     dev = torch.device("cuda")
     text = haps.text
     T = len(text)
+    put = lambda a: torch.as_tensor(a, device=dev)
     args = []
-    for m in mates:
-        R = len(m["cand_refpath"])
-        t = [torch.as_tensor(np.ascontiguousarray(m[k][:R]), device=dev)
-             for k in ("reads_arr", "reads_rc_arr", "rlens", "cand_start",
-                       "cand_lo", "cand_hi", "cand_rev", "cand_valid",
-                       "cand_refpath")]
-        ro = torch.as_tensor(m["cand_refoff"].astype(np.int32), device=dev)
-        args += [t[0], t[1], t[2], (*t[3:], ro)]
-    mu = torch.tensor(450.0, device=dev)
-    sd = torch.tensor(50.0, device=dev)
+    for reads, reads_rc, rlen, cand in step_mates(mates):
+        args += [put(reads), put(reads_rc), put(rlen),
+                 tuple(put(a) for a in cand)]
+    mu = torch.tensor(FRAG_MU, device=dev)
+    sd = torch.tensor(FRAG_SD, device=dev)
 
     def packed_fn(tp, reads, rc, rlen, cand):
         return cuda_align.banded_scores_packed(tp, T, reads, rc, rlen,
@@ -1301,16 +1325,265 @@ def phase_byte_step(haps, mates):
         torch.as_tensor(text, device=dev), *args, mu, sd)
     torch.cuda.synchronize()
     n = cuda_align.banded_scores_bytes.launches - before
-    names = ["s1", "s2", "j1", "j2", "mq1", "mq2", "use_pair", "frags",
-             "mm1", "mm2", "bits1", "bits2", "stats", "cov"]
-    bad = {k: int((g != w).sum()) for k, g, w in zip(names, got, want)}
+    bad = {k: int((g != w).sum()) for k, g, w in zip(STEP_NAMES, got, want)}
     log(f"byte-text paired step (default score function) vs packed step, "
         f"{args[0].shape[0]} pairs: {sum(bad.values())} differing entries "
         f"({json.dumps(bad)}), {int(got[6].sum())} pairs chosen, "
         f"banded_dp_bytes launched {n} times")
     assert sum(bad.values()) == 0, f"byte-text step differs: {bad}"
     assert n == 2, f"the byte-text step launched banded_dp_bytes {n} times"
+    return n, got
+
+
+STEP_NAMES = ["s1", "s2", "j1", "j2", "mq1", "mq2", "use_pair", "frags",
+              "mm1", "mm2", "bits1", "bits2", "stats", "cov"]
+N_SHARDS = 4              # text shards of the in-process sharded steps
+
+
+def differing(got, want) -> dict:
+    """Entries that differ, output by output (on the host)."""
+    return {k: int((g.cpu() != w.cpu()).sum())
+            for k, g, w in zip(STEP_NAMES, got, want)}
+
+
+def rescue_inputs(haps, idx, mem, batch, device):
+    """Real rescue candidates, as tests/test_mesh.py builds them: the
+    batch scored by a PairedGiraffeMapper with a finalized fragment model,
+    mate 2's candidates wiped so every mapped pair needs rescue, then
+    _rescue_begin (the host seed scan and the native host DP). Returns
+    the oriented reads, their lengths, the candidates and the host
+    scores."""
+    from vg_tpu_torch.map.giraffe import GiraffeMapper, GiraffeParams
+    from vg_tpu_torch.map.paired import PairedGiraffeMapper
+
+    m = GiraffeMapper(haps, idx, GiraffeParams(batch_reads=len(batch)),
+                      device=device)
+    m._mem_fallback_index = mem
+    pm = PairedGiraffeMapper(m)
+    for _ in range(64):
+        pm.fragdist.add(FRAG_MU)
+    pm.fragdist.finalize()
+    sb1, sb2 = pm.score_pairs(batch)
+    _ = sb1.scores, sb2.scores
+    sb2.cand_valid[:] = False
+    state = pm._rescue_begin(sb1, sb2)
+    assert state is not None, "rescue did not fire"
+    todo, r_start, r_lo, r_hi, r_rev, r_valid, host = state
+    R = len(sb2.codes)
+    reads = np.full((R, max(len(c) for c in sb2.codes)), 5, np.uint8)
+    rlen = np.zeros(R, np.int32)
+    row_rev = r_rev.any(axis=1)
+    for i in range(R):
+        c = sb2.codes_rc[i] if row_rev[i] else sb2.codes[i]
+        reads[i, : len(c)] = c
+        rlen[i] = len(c)
+    return (reads, rlen, r_start, r_lo, r_hi, r_valid), \
+        np.where(r_valid, np.asarray(host), -1), len(todo), m.params
+
+
+def phase_sharded(haps, idx, mem, batch, mates, replicated, card,
+                  device="cuda"):
+    """The multi-device half of parallel/mesh.py on the main path's first
+    batch at full width (6,144 pairs, C = 8, RL = 160, B = 16, the 5 Mbp
+    text): on a mesh of one rank (NCCL; gloo for device="cpu"),
+    sharded_paired_step against the replicated byte-text step
+    (phase_byte_step's output, `replicated`) and sharded_map_step's
+    coverage against the rows with a positive score; in this process, the
+    text-sharded paired step holding all N_SHARDS text shards against the
+    replicated step; rescue candidates from _rescue_begin scored by
+    sharded_rescue_scores on the mesh and by the N_SHARDS-shard scorer,
+    against the host scores and 1c's plain version. Every entry must be
+    equal. The launch counts are reset before the steps and read after
+    them. Then the device time of the N_SHARDS-shard step against the
+    replicated one, and of 1c's owner-masked shard launches against one
+    launch on the whole text. Returns 1c's launches in the steps."""
+    import datetime
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from vg_tpu_torch.ops import align, cuda_align
+    from vg_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.time()
+    dev = torch.device(device)
+    text = haps.text
+    m1, m2 = step_mates(mates)
+    (reads, rlen, r_start, r_lo, r_hi, r_valid), host, n_todo, p = \
+        rescue_inputs(haps, idx, mem, batch, device)
+    kw = dict(band_radius=p.band_radius, match=p.match, mismatch=p.mismatch,
+              gap_open=p.gap_open, gap_extend=p.gap_extend,
+              bonus=p.full_length_bonus)
+    t_host = time.time() - t0
+    # the in-process text-sharded forms: shards and localized tables
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    halo = m1[0].shape[1] + 2 * BAND + 16
+    own, shards = pmesh.split_text_shards(text, N_SHARDS, halo)
+    loc = [pmesh.localize_candidates(m[3], own, N_SHARDS, halo)
+           for m in (m1, m2)]
+    rhalo = reads.shape[1] + 2 * BAND + 16
+    rown, rshards = pmesh.split_text_shards(text, N_SHARDS, rhalo)
+    zeros = np.zeros_like(r_valid)
+    rloc = pmesh.localize_candidates(
+        (r_start, r_lo, r_hi, zeros, r_valid, np.full(r_valid.shape, -1),
+         np.zeros(r_valid.shape, np.int64)), rown, N_SHARDS, rhalo)
+    args4 = (put(shards), put(pmesh.basediff_table(own, N_SHARDS)),
+             *(put(a) for a in m1[:3]), tuple(put(a) for a in loc[0]),
+             *(put(a) for a in m2[:3]), tuple(put(a) for a in loc[1]),
+             FRAG_MU, FRAG_SD)
+    step4 = pmesh.make_sharded_text_paired_step(N_SHARDS, own, halo,
+                                                band_radius=BAND)
+    rargs4 = (put(rshards), put(reads), put(rlen),
+              *(put(a) for a in rloc[:4]), put(rloc[6]))
+    rescue4 = pmesh.make_sharded_rescue_scorer(N_SHARDS, **kw)
+
+    edges = shard_edges(dev)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")   # one host
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group(
+            pmesh.BACKENDS[device], init_method=f"file://{d}/store", rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = pmesh.make_mesh(device=device)
+            reset_launches()
+            out_dp = pmesh.sharded_paired_step(
+                mesh, text, m1, m2, FRAG_MU, FRAG_SD, band_radius=BAND)
+            scores, cov = pmesh.sharded_map_step(
+                mesh, text, *m1[:3], *m1[3][:5], band_radius=BAND)
+            out4 = step4(*args4)
+            s_mesh = pmesh.sharded_rescue_scores(
+                mesh, text, reads, rlen, r_start, r_lo, r_hi, r_valid, **kw)
+            s4 = rescue4(*rargs4)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            n = kernel_launches()["banded_dp_bytes"]
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    plain = align.banded_scores(
+        put(text), put(reads), put(reads), put(rlen), put(r_start),
+        put(r_lo), put(r_hi), put(zeros), put(r_valid), **kw)
+    bad_dp = differing(out_dp, replicated)
+    bad4 = differing(out4, replicated)
+    hostt = torch.as_tensor(host)
+    bad_rescue = {k: int((v.cpu() != hostt).sum()) for k, v in (
+        ("mesh", s_mesh), (f"{N_SHARDS} shards", s4), ("plain", plain))}
+    rows_hit = int((scores.max(dim=1).values > 0).sum())
+    owners = np.bincount(np.concatenate([c[1][c[6]] for c in loc]),
+                         minlength=N_SHARDS).tolist()
+    log(f"sharded steps, {len(m1[0])} pairs on a mesh of 1 rank "
+        f"({backend}): sharded_paired_step vs the replicated byte-text "
+        f"step {sum(bad_dp.values())} differing entries "
+        f"({json.dumps(bad_dp)}); sharded_map_step coverage {int(cov.sum())}"
+        f" = {rows_hit} rows with a positive score; {N_SHARDS}-shard text "
+        f"step (valid candidates a shard {owners}) vs the replicated "
+        f"{sum(bad4.values())} differing ({json.dumps(bad4)}), "
+        f"{int(out4[6].sum())} pairs chosen; rescue, {int(r_valid.sum())} "
+        f"candidates of {n_todo} pairs ({int((host > 0).sum())} positive): "
+        f"differing from the host scores {json.dumps(bad_rescue)}; "
+        f"banded_dp_bytes launched {n} times ({t_host:.1f} s on the host "
+        f"for the rescue candidates)")
+    assert sum(bad_dp.values()) == 0, f"sharded_paired_step: {bad_dp}"
+    assert torch.equal(scores.cpu(), replicated[0].cpu()), "map step scores"
+    assert int(cov.sum()) == rows_hit, "map step coverage"
+    assert sum(bad4.values()) == 0, f"{N_SHARDS}-shard step: {bad4}"
+    assert sum(bad_rescue.values()) == 0, f"rescue: {bad_rescue}"
+    assert (host > 0).any(), "no rescue succeeded"
+    assert sum(edges.values()) == 0, f"shard-edge batch: {edges}"
+    if device == "cuda":
+        # 2 (paired) + 1 (map) + 2 x N_SHARDS (text step) + 1 (rescue on
+        # the one-rank mesh) + N_SHARDS (rescue scorer)
+        assert n == 4 + 3 * N_SHARDS, f"banded_dp_bytes launched {n} times"
+        time_sharded(text, m1, m2, args4, step4, card)
+    log(f"sharded phase {time.time() - t0:.1f} s")
     return n
+
+
+def shard_edges(dev) -> dict:
+    """parallel/shard_cases.shard_case (windows before the text, in the
+    halo, past the text; lo and hi clipped; masked slots) through the
+    text-sharded paired step and the rescue scorer on 2 and 4 shards on
+    dev, against the same steps on the CPU (1c's plain version). Returns
+    the differing entries by shard count."""
+    from vg_tpu_torch.parallel import mesh as pmesh
+    from vg_tpu_torch.parallel.shard_cases import B, sharded_inputs
+
+    bad = {}
+    for D in (2, 4):
+        own, halo, step, rescue = sharded_inputs(D, dev)
+        _, _, step_c, rescue_c = sharded_inputs(D, torch.device("cpu"))
+        tstep = pmesh.make_sharded_text_paired_step(D, own, halo,
+                                                    band_radius=B)
+        scorer = pmesh.make_sharded_rescue_scorer(D, band_radius=B)
+        bad[D] = (sum(differing(tstep(*step), tstep(*step_c)).values())
+                  + int((scorer(*rescue).cpu() != scorer(*rescue_c)).sum()))
+    log(f"shard-edge batch (shard_case) on {dev.type} vs the CPU, by "
+        f"shard count: {json.dumps(bad)} differing entries")
+    return bad
+
+
+def time_sharded(text, m1, m2, args4, step4, card):
+    """Device ms, in turns, of the N_SHARDS-shard step against the
+    replicated byte-text step, and of 1c's owner-masked shard launches
+    (mate 1's, as the step makes them) against one launch on the whole
+    text."""
+    from vg_tpu_torch.ops import cuda_align
+    from vg_tpu_torch.parallel.mesh import make_paired_step
+
+    dev = torch.device("cuda")
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    text_t = put(text)
+    g1, g2 = ((*(put(a) for a in m[:3]), tuple(put(a) for a in m[3]))
+              for m in (m1, m2))
+    repl = make_paired_step(band_radius=BAND)
+    reads, rc, rlen, cand = g1
+    sl, ow, lo, hi, _hap, rev, valid, _rp, _ro = args4[5]
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    masked = []
+    for d in range(N_SHARDS):
+        v = valid & (ow == d)
+        masked.append((args4[0][d], torch.where(v, sl, zero),
+                       torch.where(v, lo, zero), torch.where(v, hi, zero),
+                       rev, v))
+    run4 = lambda: step4(*args4)
+    run_repl = lambda: repl(text_t, *g1, *g2, FRAG_MU, FRAG_SD)
+    step = timed_turns(run4, run_repl, 20, 20)
+    # one call of each under the profiler: the card's busy time (the
+    # steps launch hundreds of small kernels, so the events above can
+    # include the host's enqueue), and how much of it is the DP
+    busy = {}
+    for label, fn in ((f"{N_SHARDS}-shard", run4), ("replicated", run_repl)):
+        events, wall = profiled(fn)
+        by_name = {}
+        for name, us in events:
+            by_name[name] = by_name.get(name, 0.0) + us / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+        busy[label] = dict(
+            busy_ms=sum(by_name.values()), kernels=len(events),
+            dp_ms=sum(ms for n, ms in by_name.items() if "banded_dp" in n),
+            wall_ms=1e3 * wall)
+        log(f"  {label} step under the profiler: device busy "
+            f"{busy[label]['busy_ms']:.4f} ms in {len(events)} kernels "
+            f"({busy[label]['dp_ms']:.4f} ms banded_dp), wall "
+            f"{1e3 * wall:.2f} ms; largest: " + "; ".join(
+                f"{ms:.4f} ms {n[:60]}" for n, ms in top))
+    dp = timed_turns(
+        lambda: [cuda_align.banded_scores_bytes(
+            t, reads, rc, rlen, s, l, h, r, v, band_radius=BAND)
+            for t, s, l, h, r, v in masked],
+        lambda: cuda_align.banded_scores_bytes(
+            text_t, reads, rc, rlen, *cand[:5], band_radius=BAND), 50, 50)
+    log(f"{N_SHARDS}-shard text step {step['ms']:.4f} ms on the device "
+        f"(runs {step['kernel_runs_ms']}, host ahead {step['host_ahead']}) "
+        f"vs the replicated step {step['plain_ms']:.4f} ms (runs "
+        f"{step['plain_runs_ms']}); banded_dp_bytes, mate 1: "
+        f"{N_SHARDS} owner-masked shard launches {dp['ms']:.4f} ms (runs "
+        f"{dp['kernel_runs_ms']}) vs one launch on the whole text "
+        f"{dp['plain_ms']:.4f} ms (runs {dp['plain_runs_ms']}), on {card}")
+    return dict(step_ms=step["ms"], replicated_ms=step["plain_ms"],
+                shard_launches_ms=dp["ms"], whole_launch_ms=dp["plain_ms"],
+                profiled=busy)
 
 
 def longread_reads(rng, haps):
@@ -2125,8 +2398,9 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     log(f"cli phase {time.time() - t_phase:.1f} s on {card}")
 
 
-# the kernels the device-seeded path launches (banded_dp_bytes and
-# banded_dp_windows lie on no path: vg_tpu runs them only in benchmarks)
+# the kernels the device-seeded path launches (banded_dp_bytes lies on the
+# sharded steps' path; banded_dp_windows on none: vg_tpu runs it only in
+# benchmarks)
 SEEDED_PATH_KERNELS = ["banded_dp", "softcap_compact", "cluster_topc",
                        "argsort_i32"]
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
@@ -2203,11 +2477,16 @@ def main(argv=None) -> int:
     main_k = kern["timed"]["main path batch 0"]
     del kern["main_inputs"]
     entries = phase_dp_entries(haps.text, real)
-    step_launches = phase_byte_step(haps, mates)
+    step_launches, replicated = phase_byte_step(haps, mates)
     entries["banded_dp_bytes"]["check_launches"] += step_launches
     for name, k in entries.items():
         log(f"{name} at {k['shape']}, main path batch 0: {timing_text(k)}, "
             f"{k['check_launches']} launches in its checks on {card}")
+
+    # the sharded steps (parallel/mesh.py's multi-device half) on that batch
+    sharded_launches = phase_sharded(haps, idx, mem, pairs[bs : 2 * bs],
+                                     mates, replicated, card)
+    del replicated, mates
 
     # host-seeded main path, then single-end and the card-vs-CPU step
     from vg_tpu_torch.ops import cuda_align
@@ -2277,7 +2556,10 @@ def main(argv=None) -> int:
             k = dict(main_k, mismatches=kern["mismatches"],
                      max_abs_err=kern["max_abs_err"], library_ms=None)
             n = res["launches"][name]
-        elif name in entries:        # on no path: their checks' launches
+        elif name == "banded_dp_bytes":   # the sharded steps' path
+            k = dict(entries[name], library_ms=None)
+            n = sharded_launches
+        elif name in entries:        # on no path: its checks' launches
             k = dict(entries[name], library_ms=None)
             n = k["check_launches"]
         elif name == "banded_dp_qual":

@@ -1,8 +1,9 @@
 """vg_tpu_torch imports torch and nothing of JAX or vg_tpu: every module
 of the package, and chip_smoke.py's own imports, in a fresh interpreter
 (this test process already holds JAX through conftest.py), then the
-command line run in it; and no source names such an import, by statement,
-`__import__` or `importlib.import_module`."""
+command line and the one-rank dry run of the sharded steps run in it (the
+spawned rank checks its own modules); and no source names such an import,
+by statement, `__import__` or `importlib.import_module`."""
 import pathlib
 import re
 import subprocess
@@ -40,6 +41,11 @@ with tempfile.TemporaryDirectory() as d:
         assert main(["construct", "-r", os.path.join(d, "ref.fa"),
                      "-o", os.path.join(d, "g.gfa")]) == 0
     assert open(os.path.join(d, "g.gfa")).read().startswith("H\t")
+# the sharded steps in a spawned rank, which raises if it imported jax
+from vg_tpu_torch.parallel.dryrun import main as dryrun_main
+with contextlib.redirect_stdout(io.StringIO()) as out:
+    assert dryrun_main(["--nproc", "1", "--device", "cpu"]) == 0
+assert "OK on 1 ranks" in out.getvalue()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "vg_tpu"))
 print(len(names))
@@ -52,7 +58,7 @@ def test_port_imports_no_jax_and_no_vg_tpu():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     n_modules, bad = (out.stdout.splitlines() + ["", ""])[:2]
-    assert int(n_modules) >= 96, out.stdout
+    assert int(n_modules) >= 98, out.stdout
     assert bad == "", f"imported: {bad}"
 
 
