@@ -5,7 +5,8 @@
                           [--compare-parent DIR]
 
 Builds the port's kernels (vg_tpu_torch/csrc/banded_dp.cu,
-csrc/seed_kernels.cu and csrc/int_pipes.cu, nvcc) and the native host library
+csrc/seed_kernels.cu, csrc/link_engine.cu and csrc/int_pipes.cu, nvcc) and
+the native host library
 (vg_tpu_torch/native/vgtpu_host.cpp, g++) from the sources in the checkout,
 all at once, and holds every kernel against its plain PyTorch version on
 the card: the banded DP through its three entries (packed text, byte
@@ -33,9 +34,12 @@ kernels' launch counts set to 0 just before it and read just after:
 - long-read mapping, bench.py's long-read sidecar at its size: 512 reads
   of 10 kb (0.5% substitutions) on the same pangenome and minimizer
   index, LongReadMapper with engine="native" and then engine="device"
-  (the link engine, ops/device_links.py, in torch ops on the card); 16
-  reads warm the native engine, the device engine warms on the 496 timed
-  reads. The two engines' 496 records must be byte-identical;
+  (the link engine, ops/device_links.py: the link_fill and link_walk
+  kernels, csrc/link_engine.cu); 16 reads warm the native engine, the
+  device engine warms on the 496 timed reads. The two engines' 496
+  records must be byte-identical. Then the two link kernels against
+  their plain versions on the card: both buckets' inputs of the batch,
+  ops/link_cases.py, and a bucket-768 batch of 43,008 tasks;
 - `vg map -A` (MEMMapper, qual_adjusted=True): 150 bp reads with
   qualities from ReadSimulator, one warmup batch and 8 timed batches of
   512 through map_batch, the DP's quality entry (banded_dp_qual_packed) on
@@ -257,13 +261,11 @@ def build_fixture(seed, ref_mbp, n_pairs):
 
 def kernel_launches() -> dict:
     """Each kernel's launch count (the wrappers count their launches)."""
-    from vg_tpu_torch.ops import cuda_align, cuda_seed
-
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def kernel_wrappers() -> dict:
-    from vg_tpu_torch.ops import cuda_align, cuda_seed
+    from vg_tpu_torch.ops import cuda_align, cuda_links, cuda_seed
 
     return {"banded_dp": cuda_align.banded_scores_packed,
             "banded_dp_bytes": cuda_align.banded_scores_bytes,
@@ -271,7 +273,9 @@ def kernel_wrappers() -> dict:
             "banded_dp_qual": cuda_align.banded_scores_qual_packed,
             "softcap_compact": cuda_seed.softcap_compact,
             "cluster_topc": cuda_seed.cluster_topc,
-            "argsort_i32": cuda_seed.argsort_i32}
+            "argsort_i32": cuda_seed.argsort_i32,
+            "link_fill": cuda_links.link_fill,
+            "link_walk": cuda_links.link_walk}
 
 
 def reset_launches() -> None:
@@ -319,7 +323,7 @@ def phase_build():
     """All libraries at once: nvcc for each kernel source, g++ for the
     host library. Any failing ends the run."""
     from vg_tpu_torch import native
-    from vg_tpu_torch.ops import cuda_align, cuda_seed
+    from vg_tpu_torch.ops import cuda_align, cuda_links, cuda_seed
 
     took, errors = {}, []
 
@@ -335,6 +339,7 @@ def phase_build():
     threads = [threading.Thread(target=run, args=a) for a in
                (("banded_dp.cu (nvcc)", cuda_align.library),
                 ("seed_kernels.cu (nvcc)", cuda_seed.library),
+                ("link_engine.cu (nvcc)", cuda_links.library),
                 ("int_pipes.cu (nvcc)", pipes_library),
                 ("vgtpu_host.cpp (g++)", native.lib))]
     for t in threads:
@@ -345,7 +350,8 @@ def phase_build():
         raise errors[0]
     for name, s in took.items():
         log(f"build {name}: {s:.1f} s")
-    for info in (cuda_align.build_info, cuda_seed.build_info):
+    for info in (cuda_align.build_info, cuda_seed.build_info,
+                 cuda_links.build_info):
         for line in info.get("ptxas", "").splitlines():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
@@ -1090,8 +1096,8 @@ def phase_compare_parent(root, seed_inputs, dp_inputs, sf, B, C, card):
 def profiled(fn):
     """Run fn under torch.profiler: (its device events as (name, µs),
     wall seconds). Reads the profiler's raw events: building its event
-    tree (`events()`) costs tens of µs an event, and one long-read batch
-    on the device engine records some 180,000 kernels."""
+    tree (`events()`) costs tens of µs an event, and a streamed paired
+    path records tens of thousands of them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1624,14 +1630,85 @@ def longread_placed(lrm, recs, reads, starts) -> float:
     return ok / max(len(recs), 1)
 
 
+LINK_BIG_N = 43_008        # bucket-768 tasks past vg_tpu's int32 index
+LINK_HOST_PASSES = (       # (module, function) the device engine calls
+    ("vg_tpu_torch.map.longread", "LongReadMapper._device_batch"),
+    ("vg_tpu_torch.native", "native_longread_chains"),
+    ("vg_tpu_torch.native", "native_longread_collect_links"),
+    ("vg_tpu_torch.ops.device_links", "DeviceLinkAligner.align_runs_arrays"),
+    ("vg_tpu_torch.native", "native_global_align_batch"),
+    ("vg_tpu_torch.native", "native_longread_stitch"),
+    ("vg_tpu_torch.native", "native_emit_runs_gam"))
+
+
+@contextlib.contextmanager
+def timed_passes(acc):
+    """Seconds of each of LINK_HOST_PASSES, summed into acc[name]."""
+    import importlib
+
+    with contextlib.ExitStack() as stack:
+        for mod, name in LINK_HOST_PASSES:
+            owner = importlib.import_module(mod)
+            for part in name.split(".")[:-1]:
+                owner = getattr(owner, part)
+            box = stack.enter_context(timed_method(
+                owner, name.split(".")[-1], [0.0]))
+            acc[name.split(".")[-1]] = box
+        yield acc
+
+
+def link_args(arrs, text_packed, dev):
+    """link_fill's task tensors on `dev` from DeviceLinkAligner's numpy
+    arrays (a4 uint32 words; la, ta, base, lb int32)."""
+    a4, la, ta, ba, lb = arrs[:5]
+    put = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    return (put(a4.view(np.int32)), put(la), put(ta), put(ba), put(lb),
+            text_packed.to(dev))
+
+
+def check_links(args, kw) -> dict:
+    """link_fill and link_walk on the card against their plain versions on
+    the card, on the same inputs (the walk on the plain fill's bits):
+    differing entries and the largest absolute difference of each output.
+    Returns the plain outputs too, for timing."""
+    from vg_tpu_torch.ops import cuda_links
+
+    got_f = cuda_links.link_fill(*args, **kw)
+    want_f = cuda_links.link_fill_ref(*args, **kw)
+    walk_in = (want_f[1], args[1], args[3], args[4])
+    got_w = cuda_links.link_walk(*walk_in)
+    want_w = cuda_links.link_walk_ref(*walk_in)
+    torch.cuda.synchronize()
+    res = {}
+    for kernel, names, got, want in (
+            ("link_fill", ("score", "bits"), got_f, want_f),
+            ("link_walk", ("packed", "n_steps", "complete"), got_w, want_w)):
+        for name, g, w in zip(names, got, want):
+            g64, w64 = g.to(torch.int64), w.to(torch.int64)
+            res[f"{kernel}.{name}"] = (int((g64 != w64).sum()),
+                                       int((g64 - w64).abs().max())
+                                       if g.numel() else 0)
+    return dict(diff=res, bits=want_f[1], n_steps=want_w[1])
+
+
+def link_mismatches(diff, kernel) -> tuple:
+    """(differing entries, max abs difference) of one kernel's outputs."""
+    rows = [v for k, v in diff.items() if k.startswith(kernel + ".")]
+    return sum(r[0] for r in rows), max(r[1] for r in rows)
+
+
 def phase_longread(haps, idx, card, seed):
     """Long-read mapping at bench.py's sidecar size with each engine; the
     device engine's 496 records byte-identical to the native engine's,
-    placement >= 95%, the card's link_engine equal to the CPU's on one
-    bucket, and the link engine's numbers (tasks, fill / walk / fetch,
-    launches under the profiler)."""
+    placement >= 95%, the link kernels' launches on the timed batch
+    (counts reset just before it), its fill / walk / fetch and host passes'
+    seconds, a profiled batch (kernels, idle share); then link_fill and
+    link_walk against their plain versions on the card, with 0 differing
+    entries, on both buckets' captured inputs, on ops/link_cases.py and on
+    a bucket-768 batch of LINK_BIG_N tasks, and their device times."""
     from vg_tpu_torch.map.longread import LongReadMapper, LongReadParams
-    from vg_tpu_torch.ops import device_links
+    from vg_tpu_torch.ops import cuda_links, link_cases
+    from vg_tpu_torch.ops.cuda_align import pack_text
 
     t_phase = time.time()
     reads, starts = longread_reads(np.random.default_rng(seed + 7), haps)
@@ -1657,9 +1734,13 @@ def phase_longread(haps, idx, card, seed):
     dt_warm = time.time() - t0
     dla._engine = engine
     dla.stats = {}
-    t0 = time.time()
-    recs_d = dv.map_batch_encoded(timed)
-    dt_d = time.time() - t0
+    passes = {}
+    reset_launches()
+    with timed_passes(passes):
+        t0 = time.time()
+        recs_d = dv.map_batch_encoded(timed)
+        dt_d = time.time() - t0
+    launches = kernel_launches()
     st, dla.stats = dla.stats, None
     assert len(recs_n) == len(recs_d) == n_timed, (len(recs_n), len(recs_d))
     n_diff = sum(1 for a, b in zip(recs_n, recs_d) if bytes(a) != bytes(b))
@@ -1675,40 +1756,120 @@ def phase_longread(haps, idx, card, seed):
         f"resolved on the card, {st.get('tasks', 0) - on_card} on the host; "
         f"per bucket {json.dumps(buckets)}; link engine fill "
         f"{st.get('fill', 0):.4f} s, walk {st.get('walk', 0):.4f} s, fetch "
-        f"{st.get('fetch', 0):.4f} s")
+        f"{st.get('fetch', 0):.4f} s; launches on the timed batch: "
+        f"link_fill {launches['link_fill']}, link_walk "
+        f"{launches['link_walk']}")
+    engine_s = sum(st.get(k, 0.0) for k in ("fill", "walk", "fetch"))
+    host = {name: box[0] for name, box in passes.items()}
+    two_pass = host.pop("_device_batch")
+    host["align_runs_arrays"] -= engine_s    # its numpy, without the engine
+    inner = sum(v for k, v in host.items() if k != "native_emit_runs_gam")
+    log(f"long-read device engine, where the {dt_d:.3f} s go: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in host.items())
+        + f", link engine (fill + walk + fetch) {engine_s:.4f} s; the rest "
+        f"of _device_batch (oriented slices, run splice, per-chain dicts) "
+        f"{two_pass - inner - engine_s:.4f} s; map_batch_encoded's own "
+        f"Python (encoding, reverse complements, winners, MAPQ, refpos) "
+        f"{dt_d - two_pass - host['native_emit_runs_gam']:.4f} s")
     events, wall = profiled(lambda: dv.map_batch_encoded(timed))
     copies = sum(1 for name, _ in events
                  if "memcpy" in name.lower() or "memset" in name.lower())
     busy = sum(us for _, us in events) / 1e3
+    ours = {}
+    for name, us in events:
+        for k in ("link_fill_kernel", "link_walk_kernel"):
+            if k in name:
+                n, ms = ours.get(k, (0, 0.0))
+                ours[k] = (n + 1, ms + us / 1e3)
     log(f"long-read device engine under the profiler: {len(events)} device "
         f"events ({len(events) - copies} kernels, {copies} copies/sets) in "
         f"{wall:.3f} s wall, device busy {busy:.2f} ms (idle "
-        f"{100 - 100 * busy / (1e3 * wall):.2f}%)")
-    # the card's link_engine against the same function on the CPU
-    a4, la, ta, ba, lb, RMAX = captured[256]
+        f"{100 - 100 * busy / (1e3 * wall):.2f}%); "
+        + ", ".join(f"{k} {n}x {ms:.3f} ms" for k, (n, ms) in ours.items()))
+
+    # each kernel against its plain version on the card
     sc = dv.scoring
-    kw = dict(RMAX=RMAX, WB=4 * dla.B + 1, T=dla.T, match=sc.match,
-              mismatch=sc.mismatch, gap_open=sc.gap_open,
-              gap_extend=sc.gap_extend)
-    outs = []
-    for on in ("cuda", "cpu"):
-        put = lambda x: torch.as_tensor(x, device=on)
-        t0 = time.time()
-        outs.append([x.cpu() for x in device_links.link_engine(
-            put(a4.view(np.int32)), put(la), put(ta), put(ba), put(lb),
-            dla.text_packed.to(on), **kw)])
-        log(f"link_engine bucket {RMAX} on {on}: {a4.shape[0]} tasks in "
-            f"{time.time() - t0:.3f} s")
-    bad = {k: int((g != w).sum()) for k, g, w in zip(
-        ("score", "ops", "n_steps", "complete"), *outs)}
-    log(f"link_engine card vs CPU, bucket {RMAX}: {json.dumps(bad)} "
-        f"differing entries")
+    WB = 4 * dla.B + 1
+    kw0 = dict(WB=WB, T=dla.T, match=sc.match, mismatch=sc.mismatch,
+               gap_open=sc.gap_open, gap_extend=sc.gap_extend)
+    diffs = {}
+    timed_k = {}
+    for RMAX in sorted(captured):
+        args = link_args(captured[RMAX], dla.text_packed, "cuda")
+        kw = dict(kw0, RMAX=RMAX)
+        chk = check_links(args, kw)
+        diffs[f"bucket {RMAX}"] = chk["diff"]
+        N = args[0].shape[0]
+        walk_in = (chk["bits"], args[1], args[3], args[4])
+        fill_t = dict(timed_turns(
+            lambda: cuda_links.link_fill(*args, **kw),
+            lambda: cuda_links.link_fill_ref(*args, **kw), 20, 1),
+            **bound(*cuda_links.fill_work(
+                args[1], N, RMAX, WB, dla.text_packed.shape[0])))
+        walk_t = dict(timed_turns(
+            lambda: cuda_links.link_walk(*walk_in),
+            lambda: cuda_links.link_walk_ref(*walk_in), 20, 1),
+            **bound(*cuda_links.walk_work(chk["n_steps"], N, RMAX, WB)))
+        for name, t in (("link_fill", fill_t), ("link_walk", walk_t)):
+            t.update(shape=f"N = {N}, RMAX = {RMAX}, WB = {WB}")
+            timed_k.setdefault(name, {})[RMAX] = t
+            log(f"{name}, bucket {RMAX} ({t['shape']}, "
+                f"{int((args[1] > 0).sum())} tasks): {timing_text(t)} on "
+                f"{card}")
+        del chk, walk_in, args
+    for name in link_cases.CASES:
+        for RMAX in (256, 768):
+            c = link_cases.link_case(name, RMAX=RMAX)
+            tp = torch.as_tensor(pack_text(c["text"]), device="cuda")
+            m, mm, go, ge = c["scoring"]
+            kw = dict(RMAX=RMAX, WB=WB, T=len(c["text"]), match=m,
+                      mismatch=mm, gap_open=go, gap_extend=ge)
+            diffs[f"{name} {RMAX}"] = check_links(
+                link_args(c["arrays"], tp, "cuda"), kw)["diff"]
+    # a bucket-768 batch past vg_tpu's int32 flat index: the real tasks
+    # last, so that the highest flat indices belong to them
+    text, arrs = link_cases.synthetic_links(seed, N=LINK_BIG_N, RMAX=768,
+                                            B=dla.B)
+    arrs = tuple(np.ascontiguousarray(x[::-1]) for x in arrs)
+    big = link_args(arrs, torch.as_tensor(pack_text(text)), "cuda")
+    kw = dict(kw0, RMAX=768, T=len(text))
+    assert (LINK_BIG_N - 1) * 769 * WB >= 2**31, "the batch fits int32"
+    diffs[f"bucket 768, {LINK_BIG_N} tasks"] = check_links(big, kw)["diff"]
+    ms_big = cuda_ms(lambda: cuda_links.link_fill(*big, **kw), 3)
+    bits_big = cuda_links.link_fill(*big, **kw)[1]
+    ms_big_w = cuda_ms(lambda: cuda_links.link_walk(
+        bits_big, big[1], big[3], big[4]), 3)
+    log(f"link kernels on {LINK_BIG_N} bucket-768 tasks (flat indices to "
+        f"{LINK_BIG_N * 769 * WB - 1}): link_fill {ms_big:.4f} ms, "
+        f"link_walk {ms_big_w:.4f} ms (enqueue-inclusive) on {card}")
+    del big, bits_big
+    torch.cuda.empty_cache()
+    bad = {}
+    for where, d in diffs.items():
+        for k, (n, _) in d.items():
+            if n:
+                bad[f"{where}: {k}"] = n
+    log(f"link kernels vs their plain versions on the card: "
+        f"{len(diffs)} inputs ({', '.join(diffs)}), {sum(bad.values())} "
+        f"differing entries {json.dumps(bad)}")
     log(f"long-read phase {time.time() - t_phase:.1f} s")
-    assert sum(bad.values()) == 0, f"link_engine differs on the card: {bad}"
+    assert not bad, f"link kernels differ from their plain versions: {bad}"
     assert n_diff == 0, f"{n_diff} long-read records differ between engines"
     assert frac >= 0.95, frac
     assert on_card > 0, "the device engine resolved no link on the card"
-    return dict(native_rps=n_timed / dt_n, device_rps=n_timed / dt_d)
+    assert set(captured) == {256, 768}, sorted(captured)
+    for name in ("link_fill", "link_walk"):
+        assert launches[name] == len(buckets), \
+            f"{name} launched {launches[name]} times on the timed batch"
+    kernels = {}
+    for name in ("link_fill", "link_walk"):
+        mism = [link_mismatches(d, name) for d in diffs.values()]
+        kernels[name] = dict(timed_k[name][256],
+                             mismatches=sum(m[0] for m in mism),
+                             max_abs_err=max(m[1] for m in mism),
+                             bucket_768=timed_k[name][768])
+    return dict(native_rps=n_timed / dt_n, device_rps=n_timed / dt_d,
+                launches=launches, kernels=kernels)
 
 
 # ------------------------------------------------- vg map, surject, call
@@ -2419,6 +2580,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "banded_dp_qual": ("vg_tpu_torch/csrc/banded_dp.cu",
                        "vg_tpu/ops/align.py:164 banded_scores_qual "
                        "(XLA scan, no Pallas kernel)"),
+    "link_fill": ("vg_tpu_torch/csrc/link_engine.cu",
+                  "vg_tpu/ops/device_links.py:110-166 the link engine's "
+                  "fill (lax.scan over rows, XLA; no Pallas kernel)"),
+    "link_walk": ("vg_tpu_torch/csrc/link_engine.cu",
+                  "vg_tpu/ops/device_links.py:186-221 the link engine's "
+                  "walk (lax.scan over steps, XLA; no Pallas kernel)"),
 }
 
 
@@ -2532,8 +2699,8 @@ def main(argv=None) -> int:
     surject_recs = host_recs[:SURJECT_N]
     del pm, spm, host_recs, seeded_recs
 
-    # long-read mapping, both engines
-    phase_longread(haps, idx, card, args.seed)
+    # long-read mapping, both engines, and the link engine's kernels
+    lr = phase_longread(haps, idx, card, args.seed)
 
     # vg map with qualities and its DP entry; surject; pack and call
     vgmap, vgmap_inputs = phase_vg_map(haps, mem, card, args.seed)
@@ -2565,6 +2732,9 @@ def main(argv=None) -> int:
         elif name == "banded_dp_qual":
             k = dict(qual, library_ms=None)
             n = vgmap["launches"]
+        elif name in lr["kernels"]:  # bucket 256 of the long-read batch
+            k = dict(lr["kernels"][name], library_ms=None)
+            n = lr["launches"][name]
         else:
             k = seedk[name]
             n = sres["stream_launches"][name]

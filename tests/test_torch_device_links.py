@@ -1,8 +1,11 @@
-"""The long-read link engine (vg_tpu_torch/ops/device_links.py, torch ops)
-and the chain-DP twin (ops/device_chain.py) against the port's own host
-code, and the link engine on the card against the same function on the
-CPU. Imports no JAX, so the `gpu` test also runs on a machine that has
-only the card's stack:
+"""The long-read link engine (vg_tpu_torch/ops/device_links.py: the fill
+and walk kernels of ops/cuda_links.py, csrc/link_engine.cu) and the
+chain-DP twin (ops/device_chain.py) against the port's own host code; the
+cases of ops/link_cases.py against the traps they are built for; and, on
+the card, each kernel against its plain version, the wrappers' checks and
+launch counts, and the link engine against the same function on the CPU.
+Imports no JAX, so the `gpu` tests also run on a machine that has only the
+card's stack:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_device_links.py
 
@@ -15,9 +18,12 @@ import torch
 from vg_tpu_torch.map import chain as t_chain
 from vg_tpu_torch.native import native_global_align
 from vg_tpu_torch.ops import cuda_align
+from vg_tpu_torch.ops import cuda_links
 from vg_tpu_torch.ops import device_chain
 from vg_tpu_torch.ops import device_links
+from vg_tpu_torch.ops import link_cases
 from vg_tpu_torch.ops.align import DEFAULT_SCORING
+from vg_tpu_torch.ops.link_cases import synthetic_links
 
 # The suite runs in several worker processes at once: torch's intra-op
 # threads (spinning OpenMP) would oversubscribe the cores many times over.
@@ -28,50 +34,8 @@ torch.set_num_threads(1)
 def cuda_device():
     """The card, for the `gpu` tests; they skip where there is none."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the link engine's card run")
+        pytest.skip("needs an NVIDIA GPU: the link engine's kernels")
     return torch.device("cuda")
-
-
-def synthetic_links(seed, N=1024, RMAX=256, B=16, T=20000):
-    """Link problems the certification must sort out: clean and mutated
-    slices, indels that leave the band, junk reads, |d| = 2B, la = RMAX,
-    and padding (la = 0)."""
-    rng = np.random.default_rng(seed)
-    text = rng.integers(0, 4, T).astype(np.uint8)
-    a4 = np.zeros((N, RMAX // 8), np.uint32)
-    la = np.zeros(N, np.int32)
-    ta = np.zeros(N, np.int32)
-    ba = np.zeros(N, np.int32)
-    lb = np.ones(N, np.int32)
-    nib = np.arange(8, dtype=np.uint32) * 4
-    for k in range(N - 64):
-        n_a = RMAX if k % 50 == 0 else int(rng.integers(1, RMAX + 1))
-        d = 2 * B * (1 if k % 2 else -1) if k % 17 == 0 else \
-            int(rng.integers(-2 * B, 2 * B + 1))
-        n_b = max(1, n_a + d)
-        s = int(rng.integers(0, T - n_b))
-        b = text[s : s + n_b]
-        kind = k % 4
-        if kind == 3:
-            a = rng.integers(0, 5, n_a).astype(np.uint8)     # junk, N bases
-        else:
-            src = text[s : s + max(n_a, n_b) + 64].copy()
-            if kind == 2 and len(src) > 40:                  # a long indel
-                q = int(rng.integers(5, len(src) - 30))
-                src = np.concatenate([src[:q], src[q + 25 :]])
-            a = src[:n_a].copy()
-            if len(a) < n_a:
-                a = np.concatenate([a, rng.integers(0, 4, n_a - len(a))
-                                    .astype(np.uint8)])
-            mut = rng.random(n_a) < 0.03
-            a[mut] = (a[mut] + 1) % 4
-        ap = np.zeros(RMAX, np.uint8)
-        ap[:n_a] = a
-        a4[k] = (ap.reshape(-1, 8).astype(np.uint32) << nib).sum(
-            axis=1, dtype=np.uint32)
-        la[k], ta[k], lb[k] = n_a, s, n_b
-        ba[k] = min(0, n_b - n_a) - B
-    return text, (a4, la, ta, ba, lb)
 
 
 def run_engine(arrs, text, dev, RMAX=256, B=16):
@@ -161,3 +125,187 @@ def test_link_engine_on_card_equals_cpu(cuda_device, RMAX):
     for name, g, w in zip(("score", "ops", "n_steps", "complete"), got,
                           want):
         assert torch.equal(g, w), name
+
+
+# ------------------------------------------- cases, kernels, wrappers
+
+CARD_CASES = [(name, RMAX) for name in ("synthetic",) + link_cases.CASES
+              for RMAX in (256, 768)]
+
+
+def case_inputs(name, RMAX, B=16):
+    """(text, arrays, scoring) of a link case, or of synthetic_links for
+    "synthetic" (2,048 tasks, the certification's mix)."""
+    if name == "synthetic":
+        text, arrs = synthetic_links(11 + RMAX, N=2048, RMAX=RMAX, B=B)
+        return text, arrs, link_cases.DEFAULT_SCORING
+    c = link_cases.link_case(name, RMAX=RMAX, B=B)
+    return c["text"], c["arrays"], c["scoring"]
+
+
+def fill_args(text, arrs, scoring, dev, RMAX, B=16):
+    """link_fill's tensors on `dev` and its keywords."""
+    a4, la, ta, ba, lb = arrs
+    put = lambda x: torch.as_tensor(x, device=dev)
+    match, mismatch, gap_open, gap_extend = scoring
+    return ((put(a4.view(np.int32)), put(la), put(ta), put(ba), put(lb),
+             put(cuda_align.pack_text(text))),
+            dict(RMAX=RMAX, WB=4 * B + 1, T=len(text), match=match,
+                 mismatch=mismatch, gap_open=gap_open,
+                 gap_extend=gap_extend))
+
+
+def op_codes(packed):
+    """(N, STEPS) op codes of the walk's packed words."""
+    w = packed.numpy().view(np.uint32)
+    return ((w[:, :, None] >> (np.arange(8, dtype=np.uint32) * 4)) & 15
+            ).reshape(len(w), -1)
+
+
+@pytest.mark.parametrize("name", link_cases.CASES)
+def test_link_case_reaches_its_trap(name):
+    """Each case holds the inputs it is named for, and its walks go where
+    the case says (the plain engine on the CPU)."""
+    RMAX, B = 256, 16
+    text, arrs, scoring = case_inputs(name, RMAX)
+    a4, la, ta, ba, lb = arrs
+    T = len(text)
+    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX)
+    score, packed, n_steps, complete = device_links.link_engine(*args, **kw)
+    ops = op_codes(packed)
+    consumed = (ops <= 2).sum(axis=1)     # M, X and I each take a row
+    assert len(la) % 32, "a case's task count is ragged"
+    if name == "row_below_zero":
+        below = consumed > np.maximum(la, 0)
+        assert below[0] and below.sum() >= 12
+        # on row -1 the previous task's (for task 0 the last task's) bits
+        # decide: some of those walks take D moves there
+        assert (ops[0] == 3).any() and (ops[below] == 3).any(axis=1).sum() > 3
+    elif name == "text_start":
+        assert (ta == 0).any() and (ta.astype(np.int64) + ba - 1 < 0).all()
+    elif name == "text_end":
+        end = ta.astype(np.int64) + lb
+        assert (end == T).any() and (end > T).any() and (ta == T).any()
+    elif name == "d_2b":
+        assert (np.abs(lb.astype(np.int64) - la) == 2 * B).all()
+        assert (la == 1).any() and (la == RMAX).any()
+    elif name == "la_rmax":
+        assert (la == RMAX).all() and complete.numpy().any()
+    elif name in ("extend_ties", "open_equals_extend"):
+        assert (scoring[2] == scoring[3]) == (name == "open_equals_extend")
+        assert complete.numpy().all()
+        # gaps in repeats: both kinds in most walks
+        assert ((ops == 2).any(axis=1) & (ops == 3).any(axis=1)).mean() > 0.5
+    elif name == "odd_coordinates":
+        assert (la < 0).any() and (la == 0).any() and (la > RMAX).any()
+        assert (lb <= 0).any() and (ta < 0).any() and (ta > T).any()
+        assert (score.numpy()[la > RMAX] == cuda_links.NEG).all()
+    else:
+        assert len(la) == 45
+        pad = la == 0
+        assert pad.any() and (n_steps.numpy()[pad] == 1).all()
+
+
+def test_wrappers_on_cpu_run_the_plain_versions():
+    """CPU tensors go through link_fill_ref / link_walk_ref and count no
+    launch."""
+    text, arrs, scoring = case_inputs("ragged_n", 256)
+    args, kw = fill_args(text, arrs, scoring, "cpu", 256)
+    n0 = (cuda_links.link_fill.launches, cuda_links.link_walk.launches)
+    score, bits = cuda_links.link_fill(*args, **kw)
+    want = cuda_links.link_fill_ref(*args, **kw)
+    assert torch.equal(score, want[0]) and torch.equal(bits, want[1])
+    la, ba, lb = args[1], args[3], args[4]
+    got = cuda_links.link_walk(bits, la, ba, lb)
+    for g, w in zip(got, cuda_links.link_walk_ref(bits, la, ba, lb)):
+        assert torch.equal(g, w)
+    assert (cuda_links.link_fill.launches,
+            cuda_links.link_walk.launches) == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,RMAX", CARD_CASES)
+def test_fill_kernel_equals_plain(cuda_device, name, RMAX):
+    """link_fill on the card against link_fill_ref: scores and every
+    decision byte of rows 0..RMAX."""
+    text, arrs, scoring = case_inputs(name, RMAX)
+    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX)
+    want = cuda_links.link_fill_ref(*args, **kw)
+    got = cuda_links.link_fill(*(a.to(cuda_device) for a in args), **kw)
+    torch.cuda.synchronize()
+    for what, g, w in zip(("score", "bits"), got, want):
+        assert torch.equal(g.cpu(), w), (what, int((g.cpu() != w).sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,RMAX", CARD_CASES)
+def test_walk_kernel_equals_plain(cuda_device, name, RMAX):
+    """link_walk on the card against link_walk_ref on the same bits."""
+    text, arrs, scoring = case_inputs(name, RMAX)
+    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX)
+    _, bits = cuda_links.link_fill_ref(*args, **kw)
+    la, ba, lb = args[1], args[3], args[4]
+    want = cuda_links.link_walk_ref(bits, la, ba, lb)
+    got = cuda_links.link_walk(*(a.to(cuda_device)
+                                 for a in (bits, la, ba, lb)))
+    torch.cuda.synchronize()
+    for what, g, w in zip(("packed", "n_steps", "complete"), got, want):
+        assert torch.equal(g.cpu(), w), (what, int((g.cpu() != w).sum()))
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    """Wrong dtype, shape, layout, device or parameter: ValueError before
+    any launch."""
+    text, arrs, scoring = case_inputs("ragged_n", 256)
+    args, kw = fill_args(text, arrs, scoring, cuda_device, 256)
+    a4, la, ta, ba, lb, tp = args
+    n0 = (cuda_links.link_fill.launches, cuda_links.link_walk.launches)
+    bad_fill = [
+        ((a4.to(torch.int64), la, ta, ba, lb, tp), {}),
+        ((a4[:, :-1], la, ta, ba, lb, tp), {}),
+        ((a4, la[:-1], ta, ba, lb, tp), {}),
+        ((a4, la.cpu(), ta, ba, lb, tp), {}),
+        ((a4, la, ta.to(torch.int16), ba, lb, tp), {}),
+        ((a4, la, ta, ba, lb, tp.to(torch.int64)), {}),
+        ((a4, la, ta, ba, lb, tp[:0]), {}),
+        ((a4.t().contiguous().t(), la, ta, ba, lb, tp), {}),
+        (args, {"WB": cuda_links.MAX_WB + 1}),
+        (args, {"RMAX": 260}),
+        (args, {"gap_open": -1}),
+        (args, {"mismatch": cuda_links.SCORE_LIMIT}),
+    ]
+    for a, extra in bad_fill:
+        with pytest.raises(ValueError):
+            cuda_links.link_fill(*a, **dict(kw, **extra))
+    _, bits = cuda_links.link_fill(*args, **kw)
+    bad_walk = [
+        (bits.to(torch.int32), la, ba, lb),
+        (bits[:, :, :-1].contiguous()[:, :, :0], la, ba, lb),
+        (bits.reshape(len(la), -1), la, ba, lb),
+        (bits, la[:-1], ba, lb),
+        (bits, la, ba.cpu(), lb),
+        (bits, la, ba, lb.to(torch.int64)),
+        (bits.transpose(1, 2).contiguous().transpose(1, 2), la, ba, lb),
+    ]
+    for a in bad_walk:
+        with pytest.raises(ValueError):
+            cuda_links.link_walk(*a)
+    assert (cuda_links.link_fill.launches,
+            cuda_links.link_walk.launches) == (n0[0] + 1, n0[1])
+
+
+@pytest.mark.gpu
+def test_link_engine_launches_each_kernel_once(cuda_device):
+    """One link_engine call on the card is one launch of each kernel; a
+    CPU call launches nothing."""
+    text, arrs = synthetic_links(4, N=300)
+    n0 = (cuda_links.link_fill.launches, cuda_links.link_walk.launches)
+    got = run_engine(arrs, text, cuda_device)
+    n1 = (cuda_links.link_fill.launches, cuda_links.link_walk.launches)
+    assert (n1[0] - n0[0], n1[1] - n0[1]) == (1, 1)
+    want = run_engine(arrs, text, "cpu")
+    assert (cuda_links.link_fill.launches,
+            cuda_links.link_walk.launches) == n1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

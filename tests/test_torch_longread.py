@@ -33,12 +33,13 @@ from vg_tpu_torch.map import chain as t_chain
 from vg_tpu_torch.map.longread import LongReadMapper as TorchLongRead
 from vg_tpu_torch.map.longread import LongReadParams as TorchParams
 from vg_tpu_torch.ops import cuda_align
+from vg_tpu_torch.ops import cuda_links
 from vg_tpu_torch.ops import device_chain as t_dchain
 from vg_tpu_torch.ops import device_links as t_links
 from vg_tpu_torch.ops import global_align as t_global
+from vg_tpu_torch.ops import link_cases
 from vg_tpu_torch.ops.align import DEFAULT_SCORING
-
-from test_torch_device_links import synthetic_links
+from vg_tpu_torch.ops.link_cases import synthetic_links
 
 # The suite runs in several worker processes at once: torch's intra-op
 # threads (spinning OpenMP) would oversubscribe the cores many times over.
@@ -195,14 +196,22 @@ def test_chain_dp_equals_jax():
                     np.testing.assert_array_equal(a.anchors, b.anchors)
 
 
-def jax_engine(arrs, RMAX, text_packed, T, B=16):
+def scoring_kw(scoring=None):
+    """DEFAULT_SCORING, or a (match, mismatch, gap_open, gap_extend)
+    tuple, as the engines' keywords."""
+    if scoring is None:
+        sc = DEFAULT_SCORING
+        scoring = (sc.match, sc.mismatch, sc.gap_open, sc.gap_extend)
+    return dict(zip(("match", "mismatch", "gap_open", "gap_extend"),
+                    scoring))
+
+
+def jax_engine(arrs, RMAX, text_packed, T, B=16, scoring=None):
     a4, la, ta, ba, lb = arrs
-    sc = DEFAULT_SCORING
     out = j_links.link_engine()(
         jnp.asarray(a4.view(np.int32)), jnp.asarray(la), jnp.asarray(ta),
         jnp.asarray(ba), jnp.asarray(lb), jnp.asarray(text_packed),
-        RMAX=RMAX, WB=4 * B + 1, T=T, match=sc.match, mismatch=sc.mismatch,
-        gap_open=sc.gap_open, gap_extend=sc.gap_extend)
+        RMAX=RMAX, WB=4 * B + 1, T=T, **scoring_kw(scoring))
     return [np.asarray(x) for x in out]
 
 
@@ -216,6 +225,27 @@ def torch_engine(arrs, RMAX, text_packed, T, B=16):
         mismatch=sc.mismatch, gap_open=sc.gap_open,
         gap_extend=sc.gap_extend)
     return [x.numpy() for x in out]
+
+
+def assert_plain_equal_jax(arrs, RMAX, text_packed, T, B=16,
+                           scoring=None):
+    """The plain fill (its scores) and the plain walk (on the fill's bits)
+    each equal vg_tpu's link_engine, and so does link_engine (the two
+    composed) on the CPU."""
+    want = jax_engine(arrs, RMAX, text_packed, T, B, scoring)
+    a4, la, ta, ba, lb = (torch.from_numpy(x) for x in arrs)
+    kw = dict(RMAX=RMAX, WB=4 * B + 1, T=T, **scoring_kw(scoring))
+    tp = torch.from_numpy(text_packed)
+    score, bits = cuda_links.link_fill_ref(a4.view(torch.int32), la, ta, ba,
+                                           lb, tp, **kw)
+    assert bits.shape == (len(la), RMAX + 1, 4 * B + 1)
+    np.testing.assert_array_equal(score.numpy(), want[0], err_msg="fill")
+    walk = cuda_links.link_walk_ref(bits, la, ba, lb)
+    assert_engine_equal([score.numpy()] + [x.numpy() for x in walk], want)
+    got = t_links.link_engine(a4.view(torch.int32), la, ta, ba, lb, tp,
+                              **kw)
+    assert_engine_equal([x.numpy() for x in got], want)
+    return want
 
 
 def assert_engine_equal(got, want):
@@ -252,6 +282,27 @@ def test_link_engine_equals_jax_on_synthetic_links():
     ub = np.minimum(la, lb) - 2 * 6 - (d + 32)
     cert = (want[3] & (want[0] >= ub))[: len(la) - 64]
     assert cert.any() and not cert.all()
+
+
+@pytest.mark.parametrize("RMAX", [256, 768])
+def test_plain_fill_and_walk_equal_jax(long_setup, device_tasks, RMAX):
+    """cuda_links.link_fill_ref and link_walk_ref, separately and composed,
+    against vg_tpu's link_engine on the 24 reads' bucket."""
+    haps = long_setup[0]
+    tp = cuda_align.pack_text(haps.text)
+    want = assert_plain_equal_jax(device_tasks[2][RMAX][:5], RMAX, tp,
+                                  len(haps.text))
+    assert want[3].any()
+
+
+@pytest.mark.parametrize("RMAX", [256, 768])
+@pytest.mark.parametrize("name", link_cases.CASES)
+def test_plain_fill_and_walk_equal_jax_on_cases(name, RMAX):
+    """The same on every ops/link_cases.py case (the kernels' traps)."""
+    c = link_cases.link_case(name, RMAX=RMAX)
+    text = c["text"]
+    assert_plain_equal_jax(c["arrays"], RMAX, cuda_align.pack_text(text),
+                           len(text), scoring=c["scoring"])
 
 
 def test_align_runs_arrays_equal(long_setup, device_tasks):

@@ -1,22 +1,28 @@
-"""Device engine for long-read LINK alignments, in torch ops.
+"""Device engine for long-read LINK alignments.
 
 The torch port of vg_tpu/ops/device_links.py. The long-read pipeline's
 hot stage is the slow-path link DP: ~19 global affine alignments per read
 between consecutive anchor blocks (reference role: chain-gap alignment in
 minimizer_mapper_from_chains.cpp:708 / chain_items.cpp; the host twin is
 native global_align, banded with an exact band-doubling escape bound).
-This module batches every slow link of a read batch into one device pass:
+This module batches every slow link of a read batch into one device pass,
+two kernels (ops/cuda_links.py, csrc/link_engine.cu):
 
   fill:      banded affine DP in diagonal space (offset c = j - i - base,
-             base = min(0, d) - B, d = lb - la), a Python loop over rows;
-             per-cell traceback DECISION BITS (diag-ok / E-selected /
-             E-extend / F-extend / match) are exactly the equality checks
-             the host traceback re-derives, so the walk reproduces the
-             host edit sequence bit for bit. The in-row E scan uses the
-             lazy-E identity (opening from an H that equals E never beats
-             extending while gap_open >= gap_extend), one cummax a row.
-  traceback: a lockstep walk over all problems (one gather per step),
-             emitting 4-bit ops packed 8 a word.
+             base = min(0, d) - B, d = lb - la), a warp per task on the
+             card; per-cell traceback DECISION BITS (diag-ok / E-selected
+             / E-extend / F-extend / match) are exactly the equality
+             checks the host traceback re-derives, so the walk reproduces
+             the host edit sequence bit for bit. The in-row E scan uses
+             the lazy-E identity (opening from an H that equals E never
+             beats extending while gap_open >= gap_extend), one prefix max
+             a row.
+  traceback: a walk of every problem (a thread per task on the card, one
+             bits byte a step), emitting 4-bit ops packed 8 a word.
+
+CUDA tensors launch the two kernels; CPU tensors run their plain torch
+versions (cuda_links.link_fill_ref, link_walk_ref), the loop of torch ops
+over rows and steps that vg_tpu's lax.scans become without a kernel.
 
 The b (text) side is gathered on the device from the resident 4-bit
 packed text (ops/cuda_align.pack_text), so only the read-side slices
@@ -25,13 +31,6 @@ score >= match*min(la,lb) - 2*gap_open - gap_extend*(|d| + 2B) (any path
 leaving the band scores below that), else the caller's host DP runs — the
 same exactness rule as native global_align's band doubling
 (vgtpu_host.cpp).
-
-Everything is int32 with NEG = -(1 << 28) and wraps as JAX's int32 does;
-the uint32 words (packed text, read nibbles, op words) ride in int64 and
-are masked to 32 bits after each shift. The fill and the walk are plain
-torch ops: about 35 small ops a row or a step, tens of thousands of
-launches a batch on the card (PERF.md); a hand-written kernel waits for a
-measurement that says it matters.
 """
 from __future__ import annotations
 
@@ -40,8 +39,7 @@ import time
 import numpy as np
 import torch
 
-NEG = -(1 << 28)
-U32 = 0xFFFFFFFF
+from . import cuda_links
 
 
 def _round_up(x, m):
@@ -61,158 +59,22 @@ def link_engine(a4, la, ta, base, lb, text_packed, *, RMAX: int, WB: int,
     la, ta, base, lb (N,) int32, text_packed the packed text. Returns
     (score (N,) int32, packed ops (N, STEPS/8) int32 holding uint32 bits,
     n_steps (N,) int32, complete (N,) bool), equal to
-    vg_tpu.ops.device_links.link_engine()'s on the same arrays. With
-    `timing`, synchronises after each phase and adds its seconds under
-    "fill" and "walk"."""
+    vg_tpu.ops.device_links.link_engine()'s on the same arrays. On the
+    card one call is one launch of each kernel. With `timing`,
+    synchronises after each phase and adds its seconds under "fill" and
+    "walk"."""
     dev = a4.device
-    i32 = torch.int32
-    u8 = torch.uint8
-    N = a4.shape[0]
-    KB = _round_up(RMAX + WB + 8, 8)
     t0 = time.perf_counter()
-
-    # device-side b gather: bdiag[n, t] = text[ta + base - 1 + t]
-    b0 = ta.to(i32) + base - 1
-    p = b0.to(torch.int64)[:, None] + torch.arange(KB, device=dev)
-    nw = text_packed.shape[0]
-    words = text_packed[(p >> 3).clamp(0, nw - 1)].to(torch.int64)
-    nib = ((words & U32) >> ((p & 7) * 4)) & 15
-    bdiag = torch.where((p >= 0) & (p < T), nib, 6).to(u8)
-
-    # unpack read side: a_all[n, i] = a[i] (4-bit packed input)
-    col = torch.arange(RMAX, device=dev)
-    a_all = (((a4.to(torch.int64)[:, col // 8] & U32) >> ((col % 8) * 4))
-             & 15).to(u8)
-
-    cgrid = torch.arange(WB, dtype=i32, device=dev)[None, :]   # (1, WB)
-    ramp = cgrid * gap_extend
-    lbb = lb[:, None]
-    bse = base[:, None]
-    la_c = la[:, None]
-    negcol = torch.full((N, 1), NEG, dtype=i32, device=dev)
-
-    # row 0 boundary: H[0, j] = E[0, j] = -(go + (j-1)*ge), H[0,0]=0
-    j0 = bse + cgrid
-    in0 = (j0 >= 0) & (j0 <= lbb)
-    H = torch.where(j0 == 0, 0,
-                    torch.where(in0 & (j0 > 0),
-                                -(gap_open + (j0 - 1) * gap_extend),
-                                NEG)).to(i32)
-    F = torch.full((N, WB), NEG, dtype=i32, device=dev)
-    # decision bits of rows 0..RMAX, one (N, RMAX+1, WB) block: the walk
-    # gathers from it with vg_tpu's flat index n*(RMAX+1)*WB + i*WB + c
-    bits_all = torch.empty((N, RMAX + 1, WB), dtype=u8, device=dev)
-    # row-0 decision bits: every j>0 cell is E-selected; E extends while
-    # j >= 2 (E(0,j) == E(0,j-1) - ge, and H(0,j-1) - go differs because
-    # go != ge)
-    bits_all[:, 0] = torch.where(in0 & (j0 > 0),
-                                 2 | ((j0 >= 2).to(u8) << 2),
-                                 0).to(u8)
-    cfin = lb - la - base                           # final band column
-    cfin_c = cfin.clamp(0, WB - 1)[:, None]
-    score = torch.full((N,), NEG, dtype=i32, device=dev)
-
-    for i in range(1, RMAX + 1):
-        j = i + bse + cgrid                         # (N, WB)
-        inb = (j >= 0) & (j <= lbb) & (i <= la_c)
-        ai = a_all[:, i - 1 : i]                    # (N, 1)
-        # b[j-1] = text[ta + j - 1] = bdiag[i + c]
-        bt = bdiag[:, i : i + WB]
-        mbit = (bt == ai) & (ai < 4)
-        sub = torch.where(mbit, match, -mismatch).to(i32)
-        # diag (i-1, j-1) -> same c; up (i-1, j) -> c+1
-        diag = H + sub
-        Hup1 = torch.cat([H[:, 1:], negcol], 1)
-        Fup1 = torch.cat([F[:, 1:], negcol], 1)
-        F = torch.maximum(Hup1 - gap_open, Fup1 - gap_extend)
-        f_ext = (F == Fup1 - gap_extend) & (F != Hup1 - gap_open)
-        hn = torch.maximum(diag, F)                 # H without E
-        # lazy-E via cummax: E[c] = max_{c'<=c}(open[c'] + c'*ge) - go - c*ge
-        hn_sh = torch.cat([negcol, hn[:, :-1]], 1)
-        colH = torch.where(i <= la_c, -(gap_open + (i - 1) * gap_extend),
-                           NEG).to(i32)
-        j1 = j == 1
-        opensrc = torch.where(j1, torch.maximum(hn_sh, colH), hn_sh)
-        g = torch.clamp_min(opensrc, NEG) + ramp
-        pref = torch.cummax(g, dim=1).values
-        E = torch.clamp_min(pref - gap_open - ramp, NEG)
-        H = torch.maximum(hn, E)
-        e_sel = H == E
-        E_sh = torch.cat([negcol, E[:, :-1]], 1)
-        Hfull_sh = torch.cat([negcol, H[:, :-1]], 1)
-        Hfull_sh = torch.where(j1, torch.maximum(Hfull_sh, colH), Hfull_sh)
-        e_ext = (E == E_sh - gap_extend) & (E != Hfull_sh - gap_open)
-        diag_ok = H == diag
-        H = torch.where(inb, H, NEG)
-        F = torch.where(inb, F, NEG)
-        bits = (diag_ok.to(u8) | (e_sel.to(u8) << 1) | (e_ext.to(u8) << 2)
-                | (f_ext.to(u8) << 3) | (mbit.to(u8) << 4))
-        bits_all[:, i] = torch.where(inb, bits, 0)
-        hit = torch.gather(H, 1, cfin_c)[:, 0]
-        score = torch.where(la == i, hit, score)
-    score = torch.where(
-        la == 0,
-        torch.where(lb == 0, 0, -(gap_open + (lb - 1) * gap_extend)),
-        score).to(i32)
+    score, bits = cuda_links.link_fill(
+        a4, la, ta, base, lb, text_packed, RMAX=RMAX, WB=WB, T=T,
+        match=match, mismatch=mismatch, gap_open=gap_open,
+        gap_extend=gap_extend)
     if timing is not None:
         _sync(dev)
         t1 = time.perf_counter()
         timing["fill"] = timing.get("fill", 0.0) + t1 - t0
         t0 = t1
-
-    bpf = bits_all.reshape(-1)
-    size = bpf.shape[0]
-    lane_base = torch.arange(N, dtype=torch.int64, device=dev) * (
-        (RMAX + 1) * WB)
-    # certified paths satisfy total-gap-length <= 2*go/ge + |d| + 2B (from
-    # the escape bound), so steps = lb + #I <= (RMAX + 2B) +
-    # (2*go/ge + |d| + 2B + |d|)/2 — 64 slack covers any scoring in use;
-    # longer walks fail `complete` and fall back to the host
-    STEPS = _round_up(RMAX + WB + 64, 8)
-    ci = la.clone()
-    cc = cfin.clamp(0, WB - 1)
-    st = torch.zeros(N, dtype=i32, device=dev)
-    done = (la == 0) & (lb == 0)
-    ops = torch.empty((STEPS, N), dtype=u8, device=dev)
-    for s in range(STEPS):
-        j = ci + base + cc
-        # vg_tpu's gather: int32 flat index, negative wraps once, then
-        # clamped into the array (int64 here: no overflow at large N)
-        flat = lane_base + ci.to(torch.int64) * WB + cc.clamp(0, WB - 1)
-        flat = torch.where(flat < 0, flat + size, flat).clamp(0, size - 1)
-        cell = bpf[flat]
-        diag_ok = (cell & 1).to(torch.bool)
-        e_sel = ((cell >> 1) & 1).to(torch.bool)
-        e_ext = ((cell >> 2) & 1).to(torch.bool)
-        f_ext = ((cell >> 3) & 1).to(torch.bool)
-        mtc = ((cell >> 4) & 1).to(torch.bool)
-        at_end = (ci == 0) & (j == 0)
-        take_d = (st == 0) & (ci > 0) & (j > 0) & diag_ok
-        in_e = (st == 2) | ((st == 0) & ~take_d & (j > 0) & e_sel)
-        in_f = ~take_d & ~in_e
-        # ops: 0=M 1=X 2=I(read gap char) 3=D(text) 4=pad
-        op = torch.where(take_d, torch.where(mtc, 0, 1),
-                         torch.where(in_e, 3, 2))
-        halt = done | at_end
-        ops[s] = torch.where(halt, 4, op).to(u8)
-        ni = torch.where(take_d | in_f, ci - 1, ci)
-        nc = torch.where(take_d, cc, torch.where(in_e, cc - 1, cc + 1))
-        nst = torch.where(
-            take_d, 0,
-            torch.where(in_e, torch.where(e_ext & (j > 1), 2, 0),
-                        torch.where(f_ext & (ci > 1), 1, 0))).to(i32)
-        ci = torch.where(halt, ci, ni)
-        cc = torch.where(halt, cc, nc)
-        st = torch.where(halt, st, nst)
-        done = halt
-    n_steps = (ops != 4).sum(dim=0).to(i32)
-    complete = done | ((ci == 0) & ((ci + base + cc) == 0))
-    # pack 4-bit ops 8/word, traceback order
-    SW = STEPS // 8
-    sh4 = (torch.arange(STEPS, device=dev) % 8) * 4
-    packed = (ops.T.to(torch.int64) << sh4).reshape(N, SW, 8).sum(dim=2)
-    packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32,
-                         packed).to(i32)
+    packed, n_steps, complete = cuda_links.link_walk(bits, la, base, lb)
     if timing is not None:
         _sync(dev)
         timing["walk"] = timing.get("walk", 0.0) + time.perf_counter() - t0
