@@ -70,13 +70,15 @@ Kernel times are device times: a spin kernel holds the stream while the
 host enqueues the timed calls (device_ms); the enqueue-inclusive reading
 of back-to-back calls (cuda_ms) is printed beside it. The build phase
 prints each kernel's ptxas line (registers, spills) and, from cuobjdump
--sass, the DPX instructions of each banded-DP kernel; then
-csrc/int_pipes.cu measures the issue rate and latency of the DP's
+-sass, the DPX instructions of each banded-DP kernel and the largest
+loop of each link kernel (the fill's row loop, the walk's step loop);
+then csrc/int_pipes.cu measures the issue rate and latency of the DP's
 instruction kinds. --compare-parent DIR
 loads the vg_tpu_torch package of another checkout (DIR, e.g. a
 `git archive` of the parent commit), builds its kernels, and times its
 softcap_compact, cluster_topc, argsort_i32 and packed banded DP against
-this tree's on the main path's inputs, in turns, after checking that both
+this tree's on the main path's inputs, and its link_fill and link_walk on
+the long-read batch's two buckets, in turns, after checking that both
 give the same outputs.
 
 Output: one line per phase, then a JSON line with the kernels' numbers,
@@ -357,6 +359,8 @@ def phase_build():
                     or "Compiling entry" in line):
                 log("  ptxas: " + line.strip())
     sass_check(cuda_align.build_info["path"])
+    for name, loop in link_loops(cuda_links.build_info["path"]).items():
+        log(f"  sass {name}: {loop_text(loop)}")
 
 
 DPX_OPS = ("VIADDMNMX", "VIMNMX3")     # Hopper's fused DP instructions
@@ -410,28 +414,75 @@ def phase_int_pipes(card):
     return res
 
 
-def sass_check(lib_path):
-    """cuobjdump -sass of the banded-DP library: for each kernel, its
-    instruction count and its DPX and other integer min/max instructions.
-    Fails unless every instantiation of each DP kernel (the 16x2, the
-    int32 and the quality entry's) issues both DPX forms."""
+def sass_lines(lib_path):
+    """(function, address, opcode, operands) of each instruction in
+    cuobjdump -sass of a library."""
     from vg_tpu_torch.ops import cuda_build
 
     tool = pathlib.Path(cuda_build.nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    funcs, name = {}, None
+    name = None
     for line in sass.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             name = head.group(1)
-            funcs[name] = {}
             continue
-        ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                       r"([A-Z][A-Z0-9_.]*)", line)
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
         if name and ins:
-            op = ins.group(1)
-            funcs[name][op] = funcs[name].get(op, 0) + 1
+            yield name, int(ins.group(1), 16), ins.group(2), ins.group(3)
+
+
+def link_loops(lib_path) -> dict:
+    """The largest loop of each link kernel in the library's SASS (the
+    fill's row loop, the walk's step loop): the span from a backward
+    branch's target to the branch, its instructions and, among them, its
+    shuffles, votes, shared and global loads and stores."""
+    funcs = {}
+    for fn, addr, op, rest in sass_lines(lib_path):
+        m = re.search(r"(link_fill_kernel|link_walk_kernel)(?:ILi(\d+)E)?",
+                      fn)
+        if m:
+            key = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            funcs.setdefault(key, []).append((addr, op, rest))
+    loops = {}
+    for key, ins in sorted(funcs.items()):
+        best = None
+        for addr, op, rest in ins:
+            tgt = re.search(r"0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
+                body = [o for a, o, _ in ins
+                        if int(tgt.group(1), 16) <= a <= addr]
+                if best is None or len(body) > len(best):
+                    best = body
+        kinds = {}
+        for o in best or []:
+            k = o.split(".")[0]
+            if k in ("SHFL", "VOTE", "REDUX", "LDS", "STS", "LDG", "STG",
+                     "BAR", "WARPSYNC"):
+                kinds[k] = kinds.get(k, 0) + 1
+        loops[key] = dict(instructions=len(ins),
+                          loop_instructions=len(best or []),
+                          loop_kinds=kinds)
+    return loops
+
+
+def loop_text(loop) -> str:
+    return (f"{loop['instructions']} instructions; largest loop "
+            f"{loop['loop_instructions']} "
+            f"({json.dumps(loop['loop_kinds'])})")
+
+
+def sass_check(lib_path):
+    """cuobjdump -sass of the banded-DP library: for each kernel, its
+    instruction count and its DPX and other integer min/max instructions.
+    Fails unless every instantiation of each DP kernel (the 16x2, the
+    int32 and the quality entry's) issues both DPX forms."""
+    funcs = {}
+    for name, _, op, _ in sass_lines(lib_path):
+        ops = funcs.setdefault(name, {})
+        ops[op] = ops.get(op, 0) + 1
     for fn, ops in sorted(funcs.items()):
         if not re.search(r"banded_dp(16|_qual)?_kernel", fn):
             continue
@@ -1027,22 +1078,39 @@ def phase_seed_kernels(mapper, reads):
     return out, (sc_in, cl_in, key)
 
 
-def load_parent(root):
-    """The ops.cuda_seed and ops.cuda_align modules of the vg_tpu_torch
-    package under `root`, imported as the package parent_vg_tpu_torch
-    (they build their own kernels from their own sources)."""
+def load_parent(root, module):
+    """The ops.<module> module of the vg_tpu_torch package under `root`,
+    imported (once) as the package parent_vg_tpu_torch: it builds its own
+    kernels from its own sources."""
     import importlib
     import importlib.util
 
-    pkg = pathlib.Path(root).resolve() / "vg_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        "parent_vg_tpu_torch", pkg / "__init__.py",
-        submodule_search_locations=[str(pkg)])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["parent_vg_tpu_torch"] = mod
-    spec.loader.exec_module(mod)
-    return (importlib.import_module("parent_vg_tpu_torch.ops.cuda_seed"),
-            importlib.import_module("parent_vg_tpu_torch.ops.cuda_align"))
+    if "parent_vg_tpu_torch" not in sys.modules:
+        pkg = pathlib.Path(root).resolve() / "vg_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            "parent_vg_tpu_torch", pkg / "__init__.py",
+            submodule_search_locations=[str(pkg)])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["parent_vg_tpu_torch"] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"parent_vg_tpu_torch.ops.{module}")
+
+
+def turns(name, fns, mods, card, iters=20) -> dict:
+    """Device and enqueue ms of fns(mod) for the parent and this tree in
+    turns (parent, this, this, parent)."""
+    runs = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        m = mods[who]
+        dev_ms, ahead = device_ms(lambda: fns(m), iters)
+        runs[who].append(dict(ms=dev_ms, ahead=ahead,
+                              enqueue_ms=cuda_ms(lambda: fns(m), iters)))
+    log(f"{name}, parent vs this tree (same outputs): device ms parent "
+        f"{[r['ms'] for r in runs['parent']]}, this "
+        f"{[r['ms'] for r in runs['this']]}; enqueue ms parent "
+        f"{[r['enqueue_ms'] for r in runs['parent']]}, this "
+        f"{[r['enqueue_ms'] for r in runs['this']]} on {card}")
+    return runs
 
 
 def phase_compare_parent(root, seed_inputs, dp_inputs, sf, B, C, card):
@@ -1054,7 +1122,8 @@ def phase_compare_parent(root, seed_inputs, dp_inputs, sf, B, C, card):
 
     sc_in, cl_in, key = seed_inputs
     packed, T, t = dp_inputs
-    par_seed, par_align = load_parent(root)
+    par_seed = load_parent(root, "cuda_seed")
+    par_align = load_parent(root, "cuda_align")
     t0 = time.time()
     par_seed.library()
     par_align.library()
@@ -1076,20 +1145,49 @@ def phase_compare_parent(root, seed_inputs, dp_inputs, sf, B, C, card):
     for name, fn in fns.items():
         bad, _ = max_err(fn(mods["parent"]), fn(mods["this"]))
         assert bad == 0, f"{name}: parent and this tree differ on {bad}"
-        runs = {"parent": [], "this": []}
-        for who in ("parent", "this", "this", "parent"):
-            m = mods[who]
-            dev_ms, ahead = device_ms(lambda: fn(m), 20)
-            runs[who].append(dict(ms=dev_ms, ahead=ahead,
-                                  enqueue_ms=cuda_ms(lambda: fn(m), 20)))
-        res[name] = runs
-        log(f"{name} on the main path's inputs, parent vs this tree (same "
-            f"outputs): device ms parent "
-            f"{[r['ms'] for r in runs['parent']]}, this "
-            f"{[r['ms'] for r in runs['this']]}; enqueue ms parent "
-            f"{[r['enqueue_ms'] for r in runs['parent']]}, this "
-            f"{[r['enqueue_ms'] for r in runs['this']]} on {card}")
+        res[name] = turns(f"{name} on the main path's inputs", fn, mods,
+                          card)
     print(json.dumps({"compare_parent": res}), flush=True)
+    return res
+
+
+def compare_parent_links(root, captured, text_packed, kw0, card) -> dict:
+    """The parent tree's link_fill and link_walk against this tree's on
+    the long-read batch's captured bucket inputs: the same outputs (every
+    entry), then device and enqueue times in turns; and the SASS of the
+    parent's link kernels."""
+    from vg_tpu_torch.ops import cuda_links
+
+    par = load_parent(root, "cuda_links")
+    t0 = time.time()
+    par.library()
+    log(f"parent link_engine.cu built in {time.time() - t0:.1f} s from "
+        f"{root}")
+    for name, loop in link_loops(par.build_info["path"]).items():
+        log(f"  parent sass {name}: {loop_text(loop)}")
+    mods = {"parent": par, "this": cuda_links}
+    res = {}
+    for RMAX in sorted(captured):
+        args = link_args(captured[RMAX], text_packed, "cuda")
+        kw = dict(kw0, RMAX=RMAX)
+        fill = lambda m: m.link_fill(*args, **kw)
+        got, want = fill(cuda_links), fill(par)
+        bits = want[1]
+        walk = lambda m: m.link_walk(bits, args[1], args[3], args[4])
+        got += walk(cuda_links)
+        want += walk(par)
+        torch.cuda.synchronize()
+        bad = sum(int((g.to(torch.int64) != w.to(torch.int64)).sum())
+                  for g, w in zip(got, want))
+        assert bad == 0, f"bucket {RMAX}: parent and this tree differ on " \
+            f"{bad} link outputs"
+        del got, want
+        for name, fn in (("link_fill", fill), ("link_walk", walk)):
+            res[f"{name} {RMAX}"] = turns(
+                f"{name} on the long-read batch's bucket {RMAX} (N = "
+                f"{args[0].shape[0]})", fn, mods, card)
+        del args, bits
+    print(json.dumps({"compare_parent_links": res}), flush=True)
     return res
 
 
@@ -1697,7 +1795,14 @@ def link_mismatches(diff, kernel) -> tuple:
     return sum(r[0] for r in rows), max(r[1] for r in rows)
 
 
-def phase_longread(haps, idx, card, seed):
+def walk_tile_bytes(la, RMAX, WB) -> int:
+    """Bytes the walk's tiles read when every walk goes from row la to row
+    0: rows 0..min(la, RMAX) of each task with la >= 0."""
+    rows = la.to(torch.int64).clamp(-1, RMAX) + 1
+    return int(rows.sum()) * WB
+
+
+def phase_longread(haps, idx, card, seed, parent=None):
     """Long-read mapping at bench.py's sidecar size with each engine; the
     device engine's 496 records byte-identical to the native engine's,
     placement >= 95%, the link kernels' launches on the timed batch
@@ -1705,7 +1810,9 @@ def phase_longread(haps, idx, card, seed):
     seconds, a profiled batch (kernels, idle share); then link_fill and
     link_walk against their plain versions on the card, with 0 differing
     entries, on both buckets' captured inputs, on ops/link_cases.py and on
-    a bucket-768 batch of LINK_BIG_N tasks, and their device times."""
+    a bucket-768 batch of LINK_BIG_N tasks, and their device times; with
+    `parent` (a checkout), the parent's link kernels against these on both
+    buckets' inputs."""
     from vg_tpu_torch.map.longread import LongReadMapper, LongReadParams
     from vg_tpu_torch.ops import cuda_links, link_cases
     from vg_tpu_torch.ops.cuda_align import pack_text
@@ -1810,20 +1917,25 @@ def phase_longread(haps, idx, card, seed):
             lambda: cuda_links.link_walk(*walk_in),
             lambda: cuda_links.link_walk_ref(*walk_in), 20, 1),
             **bound(*cuda_links.walk_work(chk["n_steps"], N, RMAX, WB)))
+        walk_t["tile_bytes"] = walk_tile_bytes(args[1], RMAX, WB)
         for name, t in (("link_fill", fill_t), ("link_walk", walk_t)):
             t.update(shape=f"N = {N}, RMAX = {RMAX}, WB = {WB}")
             timed_k.setdefault(name, {})[RMAX] = t
+            tiles = "" if "tile_bytes" not in t else \
+                f"; the tiles read {t['tile_bytes']} bytes"
             log(f"{name}, bucket {RMAX} ({t['shape']}, "
-                f"{int((args[1] > 0).sum())} tasks): {timing_text(t)} on "
-                f"{card}")
+                f"{int((args[1] > 0).sum())} tasks): {timing_text(t)}"
+                f"{tiles} on {card}")
         del chk, walk_in, args
+    if parent:
+        compare_parent_links(parent, captured, dla.text_packed, kw0, card)
     for name in link_cases.CASES:
         for RMAX in (256, 768):
             c = link_cases.link_case(name, RMAX=RMAX)
             tp = torch.as_tensor(pack_text(c["text"]), device="cuda")
             m, mm, go, ge = c["scoring"]
-            kw = dict(RMAX=RMAX, WB=WB, T=len(c["text"]), match=m,
-                      mismatch=mm, gap_open=go, gap_extend=ge)
+            kw = dict(RMAX=RMAX, WB=4 * c["B"] + 1, T=len(c["text"]),
+                      match=m, mismatch=mm, gap_open=go, gap_extend=ge)
             diffs[f"{name} {RMAX}"] = check_links(
                 link_args(c["arrays"], tp, "cuda"), kw)["diff"]
     # a bucket-768 batch past vg_tpu's int32 flat index: the real tasks
@@ -2700,7 +2812,7 @@ def main(argv=None) -> int:
     del pm, spm, host_recs, seeded_recs
 
     # long-read mapping, both engines, and the link engine's kernels
-    lr = phase_longread(haps, idx, card, args.seed)
+    lr = phase_longread(haps, idx, card, args.seed, args.compare_parent)
 
     # vg map with qualities and its DP entry; surject; pack and call
     vgmap, vgmap_inputs = phase_vg_map(haps, mem, card, args.seed)

@@ -134,13 +134,14 @@ CARD_CASES = [(name, RMAX) for name in ("synthetic",) + link_cases.CASES
 
 
 def case_inputs(name, RMAX, B=16):
-    """(text, arrays, scoring) of a link case, or of synthetic_links for
-    "synthetic" (2,048 tasks, the certification's mix)."""
+    """(text, arrays, scoring, B) of a link case (with the case's own B),
+    or of synthetic_links for "synthetic" (2,048 tasks, the
+    certification's mix)."""
     if name == "synthetic":
         text, arrs = synthetic_links(11 + RMAX, N=2048, RMAX=RMAX, B=B)
-        return text, arrs, link_cases.DEFAULT_SCORING
+        return text, arrs, link_cases.DEFAULT_SCORING, B
     c = link_cases.link_case(name, RMAX=RMAX, B=B)
-    return c["text"], c["arrays"], c["scoring"]
+    return c["text"], c["arrays"], c["scoring"], c["B"]
 
 
 def fill_args(text, arrs, scoring, dev, RMAX, B=16):
@@ -166,11 +167,11 @@ def op_codes(packed):
 def test_link_case_reaches_its_trap(name):
     """Each case holds the inputs it is named for, and its walks go where
     the case says (the plain engine on the CPU)."""
-    RMAX, B = 256, 16
-    text, arrs, scoring = case_inputs(name, RMAX)
+    RMAX = 256
+    text, arrs, scoring, B = case_inputs(name, RMAX)
     a4, la, ta, ba, lb = arrs
     T = len(text)
-    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX)
+    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX, B)
     score, packed, n_steps, complete = device_links.link_engine(*args, **kw)
     ops = op_codes(packed)
     consumed = (ops <= 2).sum(axis=1)     # M, X and I each take a row
@@ -200,16 +201,54 @@ def test_link_case_reaches_its_trap(name):
         assert (la < 0).any() and (la == 0).any() and (la > RMAX).any()
         assert (lb <= 0).any() and (ta < 0).any() and (ta > T).any()
         assert (score.numpy()[la > RMAX] == cuda_links.NEG).all()
-    else:
+    elif name == "ragged_n":
         assert len(la) == 45
         pad = la == 0
         assert pad.any() and (n_steps.numpy()[pad] == 1).all()
+    elif name == "tile_edges":
+        R = cuda_links.WALK_TILE_ROWS
+        assert {R - 1, R, R + 1, 2 * R - 1, 2 * R, 2 * R + 1, RMAX - 1,
+                RMAX} <= set(la.tolist())
+        cpl = link_cases.lane_columns(B)
+        cf = set((lb.astype(np.int64) - la - ba).tolist())
+        assert {2 * cpl - 1, 2 * cpl, 3 * cpl - 1, 3 * cpl} <= cf
+        assert complete.numpy().mean() > 0.9
+    elif name == "ragged_warp":
+        mid = RMAX // 2 + 3
+        quads = la[32:].reshape(-1, 4)
+        assert all(sorted(q) == [0, 1, mid, RMAX] for q in quads)
+        # the first block, ordered by rows, puts all four in one warp
+        first = np.sort(la[: cuda_links.WALK_BLOCK_TASKS])
+        assert list(first[:4]) == [0, 1, mid, RMAX]
+        assert (n_steps.numpy()[la == 0] == 1).all()
+    elif name == "ins_tile_edge":
+        # I runs in the walks that go on across row la - R or la - 2R
+        R = cuda_links.WALK_TILE_ROWS
+        crossed = 0
+        for k in range(len(la)):
+            row = la[k] - np.concatenate([[0], np.cumsum(ops[k] <= 2)[:-1]])
+            ins = ops[k] == 2
+            for edge in (R, 2 * R):
+                s = np.nonzero(ins[1:] & ins[:-1]
+                               & (row[:-1] == la[k] - edge + 1))[0]
+                crossed += len(s) > 0
+        assert crossed >= 20, crossed
+    elif name == "row_below_zero_tile":
+        R = cuda_links.WALK_TILE_ROWS
+        below = consumed > np.maximum(la, 0)
+        for edge in (R - 1, R, R + 1, 2 * R):
+            assert (below & (la == edge)).sum() >= 3, edge
+    else:                                 # narrow_band, wide_band
+        assert B == link_cases.CASE_B[name]
+        assert (np.abs(lb.astype(np.int64) - la)[la > 0] <= 2 * B).all()
+        assert (np.abs(lb.astype(np.int64) - la) == 2 * B).any()
+        assert complete.numpy()[la > 0].mean() > 0.5
 
 
 def test_wrappers_on_cpu_run_the_plain_versions():
     """CPU tensors go through link_fill_ref / link_walk_ref and count no
     launch."""
-    text, arrs, scoring = case_inputs("ragged_n", 256)
+    text, arrs, scoring, _ = case_inputs("ragged_n", 256)
     args, kw = fill_args(text, arrs, scoring, "cpu", 256)
     n0 = (cuda_links.link_fill.launches, cuda_links.link_walk.launches)
     score, bits = cuda_links.link_fill(*args, **kw)
@@ -228,8 +267,8 @@ def test_wrappers_on_cpu_run_the_plain_versions():
 def test_fill_kernel_equals_plain(cuda_device, name, RMAX):
     """link_fill on the card against link_fill_ref: scores and every
     decision byte of rows 0..RMAX."""
-    text, arrs, scoring = case_inputs(name, RMAX)
-    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX)
+    text, arrs, scoring, B = case_inputs(name, RMAX)
+    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX, B)
     want = cuda_links.link_fill_ref(*args, **kw)
     got = cuda_links.link_fill(*(a.to(cuda_device) for a in args), **kw)
     torch.cuda.synchronize()
@@ -241,8 +280,8 @@ def test_fill_kernel_equals_plain(cuda_device, name, RMAX):
 @pytest.mark.parametrize("name,RMAX", CARD_CASES)
 def test_walk_kernel_equals_plain(cuda_device, name, RMAX):
     """link_walk on the card against link_walk_ref on the same bits."""
-    text, arrs, scoring = case_inputs(name, RMAX)
-    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX)
+    text, arrs, scoring, B = case_inputs(name, RMAX)
+    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX, B)
     _, bits = cuda_links.link_fill_ref(*args, **kw)
     la, ba, lb = args[1], args[3], args[4]
     want = cuda_links.link_walk_ref(bits, la, ba, lb)
@@ -254,10 +293,31 @@ def test_walk_kernel_equals_plain(cuda_device, name, RMAX):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name,RMAX", [("wide_band", 1024),
+                                       ("narrow_band", 8)])
+def test_kernels_at_the_wrappers_limits(cuda_device, name, RMAX):
+    """Both kernels against their plain versions at the largest shapes
+    the wrappers take (RMAX 1024 with WB = 93: shared memory past 48 KB a
+    block) and the smallest (RMAX 8)."""
+    text, arrs, scoring, B = case_inputs(name, RMAX)
+    args, kw = fill_args(text, arrs, scoring, "cpu", RMAX, B)
+    want = cuda_links.link_fill_ref(*args, **kw)
+    got = cuda_links.link_fill(*(a.to(cuda_device) for a in args), **kw)
+    la, ba, lb = args[1], args[3], args[4]
+    want_w = cuda_links.link_walk_ref(want[1], la, ba, lb)
+    got_w = cuda_links.link_walk(*(a.to(cuda_device)
+                                   for a in (want[1], la, ba, lb)))
+    torch.cuda.synchronize()
+    for what, g, w in zip(("score", "bits", "packed", "n_steps",
+                           "complete"), got + got_w, want + want_w):
+        assert torch.equal(g.cpu(), w), (what, int((g.cpu() != w).sum()))
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     """Wrong dtype, shape, layout, device or parameter: ValueError before
     any launch."""
-    text, arrs, scoring = case_inputs("ragged_n", 256)
+    text, arrs, scoring, _ = case_inputs("ragged_n", 256)
     args, kw = fill_args(text, arrs, scoring, cuda_device, 256)
     a4, la, ta, ba, lb, tp = args
     n0 = (cuda_links.link_fill.launches, cuda_links.link_walk.launches)

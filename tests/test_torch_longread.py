@@ -302,7 +302,7 @@ def test_plain_fill_and_walk_equal_jax_on_cases(name, RMAX):
     c = link_cases.link_case(name, RMAX=RMAX)
     text = c["text"]
     assert_plain_equal_jax(c["arrays"], RMAX, cuda_align.pack_text(text),
-                           len(text), scoring=c["scoring"])
+                           len(text), B=c["B"], scoring=c["scoring"])
 
 
 def test_align_runs_arrays_equal(long_setup, device_tasks):

@@ -28,48 +28,89 @@
 // wraps; coordinates from other arrays (j, the text position, the walk's
 // row and column) wrap as the plain version's do.
 //
-// link_fill_kernel — one warp per task, the rows in order.
-// What bounds it: bytes. At the long-read cell's bucket 256 the output is
-// 16,384 x 257 x 65 = 274 MB of decision bits (0.082 ms at 3.35 TB/s);
-// the recurrence is 46 int32 operations a cell on the rows a task runs
-// (cuda_links.FILL_OPS_PER_CELL, counted on the plain version), about as
-// much time at the INT32 rate, so the two bounds are close. Design:
-// - The band's H and F of the previous row live in registers: lane l holds
-//   columns l, l + 32 and l + 64 (K = 3 segments for WB <= 96; columns
-//   past WB hold NEG). H[c + 1] and F[c + 1] of row i - 1 come from one
-//   rotating shuffle a segment (lane 31 takes the next segment's lane 0),
-//   H[c - 1], E[c - 1] and the row's hn[c - 1] from a rotation the other
-//   way.
-// - The lazy-E cummax along the row is a warp prefix-max scan
-//   (__shfl_up_sync, 5 steps) over each segment, carried from segment to
-//   segment through lane 31.
-// - The read's words and its KB-byte text window (KB = round_up(RMAX + WB +
-//   8, 8), text codes gathered from the 4-bit packed words, 6 outside
+// Both kernels order a block's tasks by their rows (min(max(la, 0),
+// RMAX)) before handing them to warps, so that a warp's tasks run about as
+// many rows or steps (tasks come in DeviceLinkAligner's order, lengths
+// mixed; padding, la = 0, at the end).
+//
+// link_fill_kernel<CPL> — a group of 8 lanes per task, the rows in order.
+// What bounds it: operations. At the long-read cell's bucket 256 (N =
+// 8,192) the recurrence is 46 int32 operations a cell
+// (cuda_links.FILL_OPS_PER_CELL, counted on the plain version) on the
+// rows a task runs, 0.075 ms at the card's issue rate; the 137 MB of bits
+// take 0.041 ms at 3.35 TB/s. Design:
+// - Lane g of the group holds the CPL = ceil(WB / 8) consecutive columns
+//   g CPL .. g CPL + CPL - 1 (9 at WB = 65: 72 slots for 65 columns;
+//   slots past WB hold NEG). H[c + 1] and F[c + 1] of row i - 1, the
+//   row's hn[c - 1], E[c - 1] and H[c - 1] are the lane's own registers
+//   except at its edge columns: H and F of the next lane's first column
+//   (two shuffles) and hn of the previous lane's last column (one).
+// - The lazy-E cummax along the row: a serial max along the lane's
+//   columns, then a prefix max of the lane totals across the 8 lanes (3
+//   __shfl_up_sync steps and one more for the exclusive carry). The
+//   carry is the cummax at the previous lane's last column, so E and H of
+//   that column follow from it and the shuffled hn without a shuffle: 7
+//   shuffles a row for four tasks.
+// - Out-of-band and past-WB cells go unmasked into the shifts and the
+//   scan and are masked after, in the plain version's order.
+// - The warp runs the longest of its four tasks' row counts, every lane
+//   in step (full-mask shuffles); a task's rows past la compute cells
+//   that are out of band, so their bits are 0 and H, F NEG, as the plain
+//   version's masked rows read. Rows past the warp's count are
+//   zero-filled with 16-byte stores: padding tasks cost their bytes only.
+// - The read's words and its KB-byte text window (KB = round_up(RMAX + WB
+//   + 8, 8), text codes gathered from the 4-bit packed words, 6 outside
 //   [0, T)) are loaded once into shared memory; a row reads its read code
-//   as a broadcast and its WB text codes as neighbouring bytes.
-// - Rows past la hold no band cell (their bits are 0 and H, F are NEG), so
-//   the loop runs min(la, RMAX) rows and the rest of the task's bits are
-//   zero-filled: padding tasks and short links cost their bytes only.
-// - Bits are stored with neighbouring lanes on neighbouring columns (one
-//   32-byte segment a warp store).
+//   as a broadcast, and each lane slides its CPL text codes along the
+//   window, one shared load a row.
+// - The bits of a row go to shared memory, a byte a cell, without a
+//   branch (a slot past WB writes 0 over the next row's first bytes,
+//   which that row rewrites), and every kStageRows = 16 rows the group
+//   writes them out with 16-byte stores (the staged rows lie at the phase
+//   of their place in the output): from registers, each byte store of a
+//   warp would touch four tasks' rows at a stride of CPL bytes.
+// - What is left bounds it: the row's integer instructions, some 40 a
+//   column, which keep each scheduler near one issue a cycle at bucket
+//   256 (F-extend is one compare, fx > fo, of them). The warps w and
+//   w + 4 of a block, which share a scheduler, take the ordered tasks
+//   from the two ends, so that each scheduler gets short and long rows
+//   alike.
 //
-// link_walk_kernel — one thread per task, STEPS = round_up(RMAX + WB + 64,
-// 8) steps. What bounds it: latency. Each step is one dependent byte load
-// from the fill's output (the path decides the next cell), then some 60
-// integer operations (cuda_links.WALK_OPS_PER_STEP); the bytes (the cells the walks visit and the packed
-// ops) take microseconds. Design: the state (row, column, gap state,
-// halted) in registers, eight ops built in a register and stored as one
-// word, and a halted task loads nothing more. The flat index is int64:
-// n (RMAX + 1) WB + row WB + clamp(column), wrapped once by the array's
-// size when negative (the row reaches -1 through an F move on row 0) and
-// clamped into the array, as vg_tpu's int32 gather does but without its
-// overflow from 42,960 tasks in bucket 768.
+// link_walk_kernel — a group of 4 lanes per task, eight tasks a warp,
+// STEPS = round_up(RMAX + WB + 64, 8) steps. What bounds a walk: each
+// step depends on the cell the step before chose; a thread-per-task walk
+// waits on device memory every step. Design:
+// - Every move goes up a row or left within one, so the walk reads the
+//   task's rows from tiles of kTileRows = 16 rows in shared memory (1,040
+//   bytes at WB = 65): when the row leaves the tile, the tile of rows
+//   [ci - 15, ci] replaces it. One lane starts a bulk copy (TMA,
+//   cp.async.bulk) of the tile's aligned 16-byte chunks, which completes
+//   a phase of the buffer's mbarrier, and it starts the next tile's copy
+//   (the 16 rows above) into the task's second buffer as soon as a tile
+//   is in use, so that the walk waits on device memory once a task, for
+//   its first tile: a copy started when the walk needs it would stall the
+//   warp, once for each of its tasks, and one lane's bulk copy costs a
+//   few instructions where the lanes' own 16-byte copies cost some 100.
+// - All lanes of a task run the step on the same state (the shared load
+//   is a broadcast, predicated, and the tiles' shared address stays in a
+//   register), and the step is written without branches, so that a
+//   warp's eight tasks issue as one; a warp's loop ends when its walks
+//   have halted, and the rest of each task's words are filled with halted
+//   ops. The step loop is not unrolled and a group walks one task: an
+//   unrolled loop ran no faster, two walks interleaved in a group slower.
+//   Two tiles a task, 32 tasks a block: 70 KB of shared memory, so that
+//   the long-read cell's 8,192 tasks fit the card at once.
+// - A step whose row lies outside the task's rows 0..RMAX (row -1 through
+//   an F move on row 0, or la > RMAX) takes a global load, behind a
+//   warp-wide vote, as rare as it is: the int64 flat index n (RMAX + 1) WB
+//   + row WB + clamp(column), wrapped once by the array's size when
+//   negative and clamped into the array, as vg_tpu's int32 gather does
+//   but without its overflow from 42,960 tasks in bucket 768.
 //
-// Not done here: fusing the walk into the fill's block with the task's
-// bits in shared memory (16.7 KB a task at RMAX 256, 50 KB at 768). The
-// walk's index may leave its task (row -1 reads the previous task's last
-// row, or the array's end for task 0), so a fused walk would still need
-// the whole array for those steps.
+// Not done here: fusing the walk into the fill's block. The walk's index
+// may leave its task (row -1 reads the previous task's last row, which
+// another block writes), and the seam is where the plain versions are
+// compared.
 
 #include <climits>
 #include <cstdint>
@@ -79,13 +120,22 @@
 namespace {
 
 constexpr int kNeg = -(1 << 28);     // ops/cuda_links.NEG
-constexpr int kMaxWB = 96;           // three 32-column segments a warp
+constexpr int kMaxWB = 96;
 constexpr int kMaxRmax = 1024;
-constexpr int kMaxKB = (kMaxRmax + kMaxWB + 8 + 7) / 8 * 8;
-constexpr int kFillWarps = 4;        // tasks a fill block
-constexpr int kWalkThreads = 128;
+constexpr int kGroup = 8;            // lanes a fill task
+constexpr int kWarpTasks = 32 / kGroup;
+constexpr int kFillWarps = 8;        // 32 tasks a fill block
+constexpr int kFillTasks = kFillWarps * kWarpTasks;
+constexpr int kStageRows = 16;       // rows a fill task stages
+constexpr int kWalkLanes = 4;        // lanes a walk task
+constexpr int kWalkWarpTasks = 32 / kWalkLanes;
+constexpr int kWalkWarps = 4;        // 32 tasks a walk block
+constexpr int kWalkTasks = kWalkWarps * kWalkWarpTasks;
+constexpr int kTileRows = 16;        // rows of a walk tile
+constexpr int kStaticSmem = 48 * 1024;
 constexpr int kTextCode = 6;         // text code outside [0, T)
 constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kHaltedWord = 0x44444444u;   // eight halted ops
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -105,7 +155,66 @@ struct Scoring {
   int match, mismatch, gap_open, gap_extend;
 };
 
-template <int K>
+// The block's tasks n0 .. n0 + count - 1 in ascending order of their rows
+// (ties by index; tasks past N last): s_task[r] is the offset of the task
+// of rank r. Every thread of the block calls it.
+template <int kTasks>
+__device__ void order_tasks(const int32_t* __restrict__ la_, long long n0,
+                            int N, int RMAX, int* s_key, int* s_task) {
+  const int t = threadIdx.x;
+  if (t < kTasks)
+    s_key[t] = n0 + t < N ? clampi(la_[n0 + t], 0, RMAX) : RMAX + 1;
+  __syncthreads();
+  if (t < kTasks) {
+    const int key = s_key[t];
+    int rank = 0;
+    for (int u = 0; u < kTasks; ++u) {
+      const int k = s_key[u];
+      rank += k < key || (k == key && u < t);
+    }
+    s_task[rank] = t;
+  }
+  __syncthreads();
+}
+
+// len bytes at p set to 0 by the group's lanes, 16 bytes a store where
+// aligned.
+__device__ void group_zero(uint8_t* p, long long len, int g) {
+  const long long head =
+      min((long long)((16 - ((uintptr_t)p & 15)) & 15), len);
+  for (long long t = g; t < head; t += kGroup) p[t] = 0;
+  uint4* v = reinterpret_cast<uint4*>(p + head);
+  const long long nv = (len - head) >> 4;
+  for (long long t = g; t < nv; t += kGroup) v[t] = make_uint4(0, 0, 0, 0);
+  for (long long t = head + nv * 16 + g; t < len; t += kGroup) p[t] = 0;
+}
+
+// Shared bytes a fill task holds: its staged rows (kStageRows rows at any
+// 16-byte phase, and the 7 bytes past them that slots past WB write), its
+// read words, then its text window.
+__host__ __device__ inline int fill_stage_bytes(int WB) {
+  return (kStageRows * WB + 15 + 7 + 15) / 16 * 16;
+}
+__host__ __device__ inline int fill_task_bytes(int RMAX, int WB) {
+  const int KB = (RMAX + WB + 8 + 7) / 8 * 8;
+  return fill_stage_bytes(WB) + (RMAX / 8 * 4 + KB + 15) / 16 * 16;
+}
+
+// len bytes from src in shared memory to dst in device memory, src at
+// dst's 16-byte phase, by the group's lanes: 16-byte stores where
+// aligned, bytes at the two ends.
+__device__ void group_store(uint8_t* dst, const uint8_t* src, int len,
+                            int g) {
+  const int head = min((16 - (int)((uintptr_t)dst & 15)) & 15, len);
+  for (int t = g; t < head; t += kGroup) dst[t] = src[t];
+  const int nv = (len - head) >> 4;
+  uint4* dv = reinterpret_cast<uint4*>(dst + head);
+  const uint4* sv = reinterpret_cast<const uint4*>(src + head);
+  for (int t = g; t < nv; t += kGroup) dv[t] = sv[t];
+  for (int t = head + nv * 16 + g; t < len; t += kGroup) dst[t] = src[t];
+}
+
+template <int CPL>
 __global__ void __launch_bounds__(kFillWarps * 32)
 link_fill_kernel(const uint32_t* __restrict__ a4,
                  const int32_t* __restrict__ la_,
@@ -116,147 +225,250 @@ link_fill_kernel(const uint32_t* __restrict__ a4,
                  long long T, int N, int RMAX, int WB, Scoring sc,
                  int32_t* __restrict__ score_out,
                  uint8_t* __restrict__ bits) {
-  __shared__ uint8_t s_win[kFillWarps][kMaxKB];
-  __shared__ uint32_t s_a[kFillWarps][kMaxRmax / 8];
-  const int warp = threadIdx.x >> 5;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_key[kFillTasks], s_task[kFillTasks];
+  const long long n0 = (long long)blockIdx.x * kFillTasks;
+  order_tasks<kFillTasks>(la_, n0, N, RMAX, s_key, s_task);
   const int lane = threadIdx.x & 31;
-  const long long n = (long long)blockIdx.x * kFillWarps + warp;
-  if (n >= N) return;                 // the whole warp leaves together
-  const int la = la_[n], ta = ta_[n], base = base_[n], lb = lb_[n];
+  const int warp = threadIdx.x >> 5;
+  const int slot = warp * kWarpTasks + lane / kGroup;
+  const int g = lane % kGroup;
+  // warps w and w + kFillWarps / 2 share a scheduler: they take the
+  // ordered tasks from the two ends, short and long rows together
+  const int pos = warp < kFillWarps / 2 ? warp
+                                        : kFillWarps * 3 / 2 - 1 - warp;
+  const long long n = n0 + s_task[pos * kWarpTasks + lane / kGroup];
+  const bool live = n < N;
+  if (!__any_sync(kFull, live)) return;   // the whole warp leaves together
+  const int la = live ? la_[n] : 0, ta = live ? ta_[n] : 0;
+  const int base = live ? base_[n] : 0, lb = live ? lb_[n] : 0;
   const int go = sc.gap_open, ge = sc.gap_extend;
+  const int negmm = wneg(sc.mismatch);
   const int RW = RMAX / 8;
   const int KB = (RMAX + WB + 8 + 7) / 8 * 8;
-  uint8_t* const win = s_win[warp];
-  uint32_t* const aw = s_a[warp];
-  for (int w = lane; w < RW; w += 32) aw[w] = a4[n * RW + w];
-  // text window: win[t] = text[ta + base - 1 + t], kTextCode outside [0, T)
-  const int b0 = wsub(wadd(ta, base), 1);
-  for (int t = lane; t < KB; t += 32) {
-    const long long p = (long long)b0 + t;
-    const long long wi = p < 0 ? 0 : min(p >> 3, nw - 1);
-    const uint32_t nib = (text[wi] >> ((p & 7) * 4)) & 15u;
-    win[t] = (p >= 0 && p < T) ? (uint8_t)nib : (uint8_t)kTextCode;
+  uint8_t* const stage = smem + slot * fill_task_bytes(RMAX, WB);
+  uint32_t* const aw =
+      reinterpret_cast<uint32_t*>(stage + fill_stage_bytes(WB));
+  uint8_t* const win = reinterpret_cast<uint8_t*>(aw + RW);
+  if (live) {
+    for (int w = g; w < RW; w += kGroup) aw[w] = a4[n * RW + w];
+    // text window: win[t] = text[ta + base - 1 + t], kTextCode outside
+    // [0, T)
+    const int b0 = wsub(wadd(ta, base), 1);
+    for (int t = g; t < KB; t += kGroup) {
+      const long long p = (long long)b0 + t;
+      const long long wi = p < 0 ? 0 : min(p >> 3, nw - 1);
+      const uint32_t nib = (text[wi] >> ((p & 7) * 4)) & 15u;
+      win[t] = (p >= 0 && p < T) ? (uint8_t)nib : (uint8_t)kTextCode;
+    }
   }
   __syncwarp();
 
-  uint8_t* const out = bits + n * (long long)(RMAX + 1) * WB;
+  uint8_t* const out = bits + (live ? n : 0) * (long long)(RMAX + 1) * WB;
+  // rows r0 .. are staged at sbuf[(row - r0) WB + c], sbuf at the 16-byte
+  // phase of their place in `out`; flushed every kStageRows rows
+  int r0 = 0;
+  uint8_t* sbuf = stage + ((uintptr_t)out & 15);
+  const auto flush = [&](int last) {
+    __syncwarp();
+    if (live)
+      group_store(out + (long long)r0 * WB, sbuf, (last - r0 + 1) * WB, g);
+    __syncwarp();
+    r0 = last + 1;
+    sbuf = stage + ((uintptr_t)(out + (long long)r0 * WB) & 15);
+  };
+  const int c0 = g * CPL;
   // row 0: H = 0 at j = 0, -(go + (j - 1) ge) for 0 < j <= lb; F = NEG;
   // bits: E-selected, E-extend while j >= 2
-  int H[K], F[K];
+  int H[CPL], F[CPL], tk[CPL];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int c = lane + 32 * k;
+  for (int k = 0; k < CPL; ++k) {
+    const int c = c0 + k;
     const int j0 = wadd(base, c);
     const bool in0 = j0 >= 0 && j0 <= lb;
     H[k] = c >= WB ? kNeg
          : j0 == 0 ? 0
          : (in0 && j0 > 0) ? wneg(wadd(go, wmul(wsub(j0, 1), ge))) : kNeg;
     F[k] = kNeg;
-    if (c < WB) out[c] = (in0 && j0 > 0) ? (uint8_t)(2 | ((j0 >= 2) << 2)) : 0;
+    sbuf[c] = c < WB && in0 && j0 > 0 ? (uint8_t)(2 | ((j0 >= 2) << 2))
+                                      : (uint8_t)0;
+    tk[k] = win[1 + c];               // row 1's text codes
   }
 
   const int rows = la < 0 ? 0 : min(la, RMAX);
-  for (int i = 1; i <= rows; ++i) {
+  const int wrows = __reduce_max_sync(kFull, rows);
+  if (wrows == 0) flush(0);
+  const int cf = clampi(wsub(wsub(lb, la), base), 0, WB - 1);
+  int score = kNeg;
+  for (int i = 1; i <= wrows; ++i) {
     const int ai = (int)((aw[(i - 1) >> 3] >> (((i - 1) & 7) * 4)) & 15u);
+    const int aim = ai < 4 ? ai : -1;   // text codes are never -1
     const int jb = wadd(i, base);
-    // column j = 0's H on this row (i <= la on every row the loop runs)
-    const int colH = wneg(wadd(go, wmul(i - 1, ge)));
-    int rH[K], rF[K];
+    const bool rowin = i <= la && lb >= 0;
+    // column j = 0's H on this row
+    const int colH = i <= la ? wneg(wadd(go, wmul(i - 1, ge))) : kNeg;
+    // row i - 1's H and F at the next lane's first column (NEG past the
+    // group's last lane: past the band)
+    const int hnx = __shfl_down_sync(kFull, H[0], 1, kGroup);
+    const int fnx = __shfl_down_sync(kFull, F[0], 1, kGroup);
+    int diag[CPL], Fn[CPL], hn[CPL], j[CPL];
+    bool mb[CPL], fext[CPL];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      rH[k] = __shfl_sync(kFull, H[k], (lane + 1) & 31);
-      rF[k] = __shfl_sync(kFull, F[k], (lane + 1) & 31);
-    }
-    int diag[K], Fn[K], hn[K];
-    unsigned mb[K], fext[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int c = lane + 32 * k;
-      // row i - 1's column c + 1 (NEG past the band)
-      const int Hup = lane < 31 ? rH[k] : (k + 1 < K ? rH[k + 1] : kNeg);
-      const int Fup = lane < 31 ? rF[k] : (k + 1 < K ? rF[k + 1] : kNeg);
-      const int bt = c < WB ? win[i + c] : kTextCode;
-      mb[k] = (bt == ai) && (ai < 4);
-      diag[k] = wadd(H[k], mb[k] ? sc.match : wneg(sc.mismatch));
+    for (int k = 0; k < CPL; ++k) {
+      const int Hup = k + 1 < CPL ? H[k + 1] : (g + 1 < kGroup ? hnx : kNeg);
+      const int Fup = k + 1 < CPL ? F[k + 1] : (g + 1 < kGroup ? fnx : kNeg);
+      mb[k] = tk[k] == aim;
+      diag[k] = wadd(H[k], mb[k] ? sc.match : negmm);
       const int fo = wsub(Hup, go), fx = wsub(Fup, ge);
       Fn[k] = max(fo, fx);
-      fext[k] = (Fn[k] == fx) && (Fn[k] != fo);
+      fext[k] = fx > fo;              // Fn == fx and Fn != fo
       hn[k] = max(diag[k], Fn[k]);
+      j[k] = wadd(jb, c0 + k);
     }
     // lazy E: E[c] = max_{c' <= c}(open[c'] + c' ge) - go - c ge, where
     // open[c] = hn[c - 1] (and column j = 0's H where j = 1)
-    int sh[K], g[K];
+    const int hup = __shfl_up_sync(kFull, hn[CPL - 1], 1, kGroup);
+    const int hprev = g > 0 ? hup : kNeg;
+    int pre[CPL];
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      sh[k] = __shfl_sync(kFull, hn[k], (lane + 31) & 31);
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int c = lane + 32 * k;
-      const int left = lane > 0 ? sh[k] : (k > 0 ? sh[k - 1] : kNeg);
-      const bool j1 = wadd(jb, c) == 1;
-      const int opensrc = j1 ? max(left, colH) : left;
-      g[k] = wadd(max(opensrc, kNeg), wmul(c, ge));
+    for (int k = 0; k < CPL; ++k) {
+      const int left = k > 0 ? hn[k - 1] : hprev;
+      const int os = j[k] == 1 ? max(left, colH) : left;
+      const int gk = wadd(max(os, kNeg), wmul(c0 + k, ge));
+      pre[k] = k > 0 ? max(pre[k - 1], gk) : gk;
     }
-    int carry = INT_MIN;
-    int E[K], Hn[K];
+    int incl = pre[CPL - 1];
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      int v = g[k];
+    for (int d = 1; d < kGroup; d <<= 1)   // lanes below d get their own
+      incl = max(incl, __shfl_up_sync(kFull, incl, d, kGroup));
+    int carry = __shfl_up_sync(kFull, incl, 1, kGroup);
+    // the previous lane's last column: its E, and its H before masking
+    const int Eprev = g > 0
+        ? max(wsub(wsub(carry, go), wmul(c0 - 1, ge)), kNeg) : kNeg;
+    const int Hprev = g > 0 ? max(hprev, Eprev) : kNeg;
+    if (g == 0) carry = INT_MIN;
+    // the lane's bytes of the row; a slot past WB writes 0 over the next
+    // row's first bytes, which that row rewrites after the __syncwarp
+    uint8_t* const rowp = sbuf + (i - r0) * WB + c0;
+    __syncwarp();
+    int Ek1 = Eprev, Hk1 = Hprev;
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(kFull, v, d);
-        if (lane >= d) v = max(v, t);
-      }
-      v = max(v, carry);
-      carry = __shfl_sync(kFull, v, 31);
-      const int c = lane + 32 * k;
-      E[k] = max(wsub(wsub(v, go), wmul(c, ge)), kNeg);
-      Hn[k] = max(hn[k], E[k]);
-    }
-    int sE[K], sHn[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      sE[k] = __shfl_sync(kFull, E[k], (lane + 31) & 31);
-      sHn[k] = __shfl_sync(kFull, Hn[k], (lane + 31) & 31);
-    }
-    uint8_t* const row = out + (long long)i * WB;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int c = lane + 32 * k;
-      const int j = wadd(jb, c);
-      const int Esh = lane > 0 ? sE[k] : (k > 0 ? sE[k - 1] : kNeg);
-      int Hsh = lane > 0 ? sHn[k] : (k > 0 ? sHn[k - 1] : kNeg);
-      if (j == 1) Hsh = max(Hsh, colH);
-      const unsigned eext = (E[k] == wsub(Esh, ge)) && (E[k] != wsub(Hsh, go));
-      const unsigned esel = Hn[k] == E[k];
-      const unsigned dok = Hn[k] == diag[k];
-      const bool inb = c < WB && j >= 0 && j <= lb;
-      if (c < WB)
-        row[c] = inb ? (uint8_t)(dok | (esel << 1) | (eext << 2)
-                                 | (fext[k] << 3) | (mb[k] << 4))
-                     : (uint8_t)0;
-      H[k] = inb ? Hn[k] : kNeg;
+    for (int k = 0; k < CPL; ++k) {
+      const int c = c0 + k;
+      const int E = max(wsub(wsub(max(pre[k], carry), go), wmul(c, ge)),
+                        kNeg);
+      const int Hn = max(hn[k], E);
+      const int Hsh = j[k] == 1 ? max(Hk1, colH) : Hk1;
+      const bool eext = (E == wsub(Ek1, ge)) && (E != wsub(Hsh, go));
+      const bool esel = Hn == E;
+      const bool dok = Hn == diag[k];
+      const bool inb = c < WB && rowin && (unsigned)j[k] <= (unsigned)lb;
+      const unsigned v = dok | (esel << 1) | (eext << 2) | (fext[k] << 3)
+                       | (mb[k] << 4);
+      rowp[k] = (uint8_t)(v & (0u - (unsigned)inb));
+      Ek1 = E;
+      Hk1 = Hn;
+      H[k] = inb ? Hn : kNeg;
       F[k] = inb ? Fn[k] : kNeg;
     }
-  }
-  // rows past the loop hold no band cell
-  const long long tail = (long long)(RMAX - rows) * WB;
-  uint8_t* const zero = out + (long long)(rows + 1) * WB;
-  for (long long t = lane; t < tail; t += 32) zero[t] = 0;
-
-  if (la >= 1 && la <= RMAX) {        // H of row la at the final column
-    const int cf = clampi(wsub(wsub(lb, la), base), 0, WB - 1);
+    if (i == la) {                    // H of row la at the final column
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      if (cf == lane + 32 * k) score_out[n] = H[k];
-  } else if (lane == 0) {
+      for (int k = 0; k < CPL; ++k)
+        if (c0 + k == cf) score = H[k];
+    }
+    // slide the text codes: row i + 1 reads win[i + 1 + c]
+#pragma unroll
+    for (int k = 0; k + 1 < CPL; ++k) tk[k] = tk[k + 1];
+    tk[CPL - 1] = win[i + 1 + c0 + CPL - 1];
+    if (i - r0 + 1 == kStageRows || i == wrows) flush(i);
+  }
+  if (!live) return;
+  // rows past the warp's count hold no band cell
+  group_zero(out + (long long)(wrows + 1) * WB,
+             (long long)(RMAX - wrows) * WB, g);
+
+  if (la >= 1 && la <= RMAX) {
+    if (cf >= c0 && cf < c0 + CPL) score_out[n] = score;
+  } else if (g == 0) {
     score_out[n] = la != 0 ? kNeg
                  : lb == 0 ? 0
                  : wneg(wadd(go, wmul(wsub(lb, 1), ge)));
   }
 }
 
-__global__ void __launch_bounds__(kWalkThreads)
+// Shared bytes of a walk tile: kTileRows rows in the 16-byte chunks that
+// hold them.
+__host__ __device__ inline int walk_tile_bytes(int WB) {
+  return (kTileRows * WB + 30 + 15) / 16 * 16;
+}
+
+// The bulk copy engine (TMA) and its barriers: one lane starts a copy of
+// a tile, and its barrier's phase completes when the bytes have landed.
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\t"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%3], %2;\n\t"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n\t}"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_done(unsigned bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Starts copying the 16-byte chunks that hold the bytes [src, src + len)
+// of device memory to dst (a 16-byte aligned shared address): lane g = 0
+// of the task's lanes starts one bulk copy on barrier bar. Returns the
+// offset of src's byte from dst. The chunks reach at most 15 bytes past
+// either end of the range: bytes that share an aligned 16 bytes with a
+// byte of the array, so inside its allocation (PyTorch's allocations are
+// 512-byte aligned and sized), and which the walk never reads.
+__device__ int tile_fetch(unsigned dst, const uint8_t* src, int len, int g,
+                          unsigned bar) {
+  const uint8_t* a0 =
+      reinterpret_cast<const uint8_t*>((uintptr_t)src & ~(uintptr_t)15);
+  const unsigned bytes =
+      (unsigned)(((uintptr_t)(src + len) + 15 - (uintptr_t)a0) & ~15u);
+  if (g == 0) {
+    // the lanes' reads of the buffer (after the __syncwarp before this)
+    // come before the copy's writes
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bulk_copy(dst, a0, bytes, bar);
+  }
+  return (int)(src - a0);
+}
+
+// v = the shared byte at addr where pred holds (a predicated load, no
+// branch).
+__device__ __forceinline__ void lds_u8_if(unsigned& v, unsigned addr,
+                                          bool pred) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.u32 q, %2, 0;\n\t"
+      "@q ld.shared.u8 %0, [%1];\n\t}"
+      : "+r"(v) : "r"(addr), "r"((unsigned)pred));
+}
+
+// x, kept in a register: the compiler would otherwise rebuild a shared
+// address from the block's cluster rank at every use.
+__device__ __forceinline__ unsigned opaque(unsigned x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+__global__ void __launch_bounds__(kWalkWarps * 32)
 link_walk_kernel(const uint8_t* __restrict__ bits,
                  const int32_t* __restrict__ la_,
                  const int32_t* __restrict__ base_,
@@ -264,60 +476,133 @@ link_walk_kernel(const uint8_t* __restrict__ bits,
                  int STEPS, uint32_t* __restrict__ packed,
                  int32_t* __restrict__ n_steps_out,
                  bool* __restrict__ complete_out) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_key[kWalkTasks], s_task[kWalkTasks];
+  __shared__ uint64_t s_bar[kWalkTasks][2];
+  const long long n0 = (long long)blockIdx.x * kWalkTasks;
+  order_tasks<kWalkTasks>(la_, n0, N, RMAX, s_key, s_task);
+  const int lane = threadIdx.x & 31;
+  const int slot = (threadIdx.x >> 5) * kWalkWarpTasks + lane / kWalkLanes;
+  const int g = lane % kWalkLanes;
+  const long long n = n0 + s_task[slot];
+  const bool live = n < N;
+  if (!__any_sync(kFull, live)) return;
+  const int TB = walk_tile_bytes(WB);
+  // two tiles a task, each with its barrier
+  const unsigned stiles = opaque((unsigned)__cvta_generic_to_shared(
+      smem + slot * 2 * TB));
+  const unsigned sbar = (unsigned)__cvta_generic_to_shared(s_bar[slot]);
+  if (g == 0) {
+    mbar_init(sbar);
+    mbar_init(sbar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncwarp();
   const long long row = (long long)(RMAX + 1) * WB;
   const long long size = row * N;
-  const long long lane_base = n * row;
-  const int la = la_[n], base = base_[n], lb = lb_[n];
+  const long long lane_base = (live ? n : 0) * row;
+  const uint8_t* const task_bits = bits + lane_base;
+  const int la = live ? la_[n] : 0, base = live ? base_[n] : 0;
+  const int lb = live ? lb_[n] : 0;
   int ci = la;
   int cc = clampi(wsub(wsub(lb, la), base), 0, WB - 1);
   int st = 0;                          // 0 diagonal/H, 1 in F, 2 in E
-  bool done = la == 0 && lb == 0;
+  bool done = !live || (la == 0 && lb == 0);
   int steps = 0;
+  // the tile the walk reads (rows lo..hi, row r's bytes at tiles[cur +
+  // r WB]) and the one in flight (rows nlo..nhi, at tiles[nxt + r WB]),
+  // each in one of the task's two buffers
+  int lo = RMAX + 1, hi = -1, nlo = RMAX + 1, nhi = -1, buf = 0;
+  int cur = 0, nxt = 0;
+  unsigned parity = 0;                 // bit b: the phase buffer b awaits
+  unsigned pending = 0;                // bit b: a copy into b in flight
+  const auto fetch = [&](int tlo, int thi) {
+    const int b = buf ^ 1;
+    nlo = tlo;
+    nhi = thi;
+    nxt = b * TB + tile_fetch(stiles + b * TB,
+                              task_bits + (long long)tlo * WB,
+                              (thi - tlo + 1) * WB, g, sbar + 8 * b)
+        - tlo * WB;
+    pending |= 1u << b;
+  };
+  const auto land = [&](int b) {       // the copy into buffer b landed
+    while (!mbar_done(sbar + 8 * b, (parity >> b) & 1u)) {
+    }
+    parity ^= 1u << b;
+    pending &= ~(1u << b);
+  };
   const int SW = STEPS / 8;
-  uint32_t* const out = packed + n * SW;
-  for (int w = 0; w < SW; ++w) {
+  uint32_t* const out = packed + (live ? n : 0) * SW;
+  int w = 0;
+  for (; w < SW; ++w) {
     uint32_t word = 0;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      unsigned op = 4;
-      if (!done) {
-        const int j = wadd(wadd(ci, base), cc);
-        if (ci == 0 && j == 0) {
-          done = true;
-        } else {
-          long long flat = lane_base + (long long)ci * WB
-                         + clampi(cc, 0, WB - 1);
-          if (flat < 0) flat += size;
-          flat = flat < 0 ? 0 : (flat > size - 1 ? size - 1 : flat);
-          const unsigned cell = bits[flat];
-          const bool take_d = st == 0 && ci > 0 && j > 0 && (cell & 1u);
-          const bool in_e = st == 2
-                         || (st == 0 && !take_d && j > 0 && (cell & 2u));
-          if (take_d) {
-            op = (cell & 16u) ? 0 : 1;
-            ci = wsub(ci, 1);
-            st = 0;
-          } else if (in_e) {
-            op = 3;
-            st = ((cell & 4u) && j > 1) ? 2 : 0;
-            cc = wsub(cc, 1);
-          } else {                     // F: a read base against a gap
-            op = 2;
-            st = ((cell & 8u) && ci > 1) ? 1 : 0;
-            ci = wsub(ci, 1);
-            cc = wadd(cc, 1);
-          }
-          ++steps;
+    // not unrolled: the loop's code stays small enough for the
+    // instruction cache (unrolled, with the tile code inlined 8 times,
+    // it took some 40 KB)
+#pragma unroll 1
+    for (int q = 0; q < 32; q += 4) {
+      const int j = wadd(wadd(ci, base), cc);
+      const bool moves = !done & !(ci == 0 & j == 0);
+      // a row of the task (ci < lo <= RMAX + 1) outside the tile
+      const bool need = moves & ((unsigned)ci < (unsigned)lo);
+      if (__any_sync(kFull, need)) {   // the walk leaves its tile
+        if (need) {
+          // the first tile (or, for la > RMAX, the first below RMAX): no
+          // copy into the other buffer is in flight then
+          if (ci < nlo || ci > nhi) fetch(max(ci - kTileRows + 1, 0), ci);
+          land(buf ^ 1);
+          buf ^= 1;
+          cur = nxt;
+          lo = nlo;
+          hi = nhi;
+        }
+        __syncwarp();                  // the tile arrived; the other is free
+        if (need && lo > 0) {          // the next tile, ahead of the walk
+          fetch(max(lo - kTileRows, 0), lo - 1);
+        } else if (need) {
+          nlo = RMAX + 1;
+          nhi = -1;
         }
       }
-      word |= op << (4 * q);
+      const int col = clampi(cc, 0, WB - 1);
+      const bool in_tile = ci >= lo & ci <= hi;
+      unsigned cell = 0;
+      lds_u8_if(cell, stiles + (unsigned)(cur + ci * WB + col), in_tile);
+      const bool off = moves & !in_tile;
+      if (__any_sync(kFull, off) && off) {   // outside the task's rows
+        long long flat = lane_base + (long long)ci * WB + col;
+        if (flat < 0) flat += size;
+        flat = flat < 0 ? 0 : (flat > size - 1 ? size - 1 : flat);
+        cell = bits[flat];
+      }
+      // the step, without branches: D (diagonal), E (a text base against
+      // a gap, op D) or F (a read base against a gap, op I)
+      const bool take_d = (st == 0) & (ci > 0) & (j > 0) & (cell & 1u);
+      const bool in_e = (st == 2) | ((st == 0) & !take_d & (j > 0)
+                                     & ((cell >> 1) & 1u));
+      const bool in_f = !take_d & !in_e;
+      const unsigned op = take_d ? 1u - ((cell >> 4) & 1u) : in_e ? 3u : 2u;
+      const int nst = in_e ? 2 * (((cell >> 2) & 1u) & (j > 1))
+                    : in_f ? (((cell >> 3) & 1u) & (ci > 1)) : 0;
+      ci = wsub(ci, moves & !in_e);
+      cc = wadd(cc, moves ? (int)in_f - (int)in_e : 0);
+      st = moves ? nst : st;
+      steps += moves;
+      word |= (moves ? op : 4u) << q;
+      done = !moves;
     }
-    out[w] = word;
+    if (live && g == 0) out[w] = word;
+    if (__all_sync(kFull, done)) break;
   }
-  n_steps_out[n] = steps;
-  complete_out[n] = done || (ci == 0 && wadd(wadd(ci, base), cc) == 0);
+  for (int b = 0; b < 2; ++b)          // no copy outlives the block
+    if (pending >> b & 1u) land(b);
+  if (!live) return;
+  for (int t = w + 1 + g; t < SW; t += kWalkLanes) out[t] = kHaltedWord;
+  if (g == 0) {
+    n_steps_out[n] = steps;
+    complete_out[n] = done || (ci == 0 && wadd(wadd(ci, base), cc) == 0);
+  }
 }
 
 cudaError_t use_device(int device) {
@@ -325,6 +610,39 @@ cudaError_t use_device(int device) {
   const cudaError_t e = cudaGetDevice(&cur);
   if (e != cudaSuccess) return e;
   return cur == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// Shared memory above 48 KB a block needs the kernel's leave (the static
+// arrays, under 1 KB, count too).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes + 1024 <= kStaticSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+struct FillArgs {
+  const uint32_t* a;
+  const int32_t *la, *ta, *base, *lb;
+  const uint32_t* text;
+  long long nw, T;
+  int N, RMAX, WB;
+  Scoring sc;
+  int32_t* score;
+  uint8_t* bits;
+};
+
+template <int CPL>
+cudaError_t launch_fill(const FillArgs& f, cudaStream_t s) {
+  const int smem = kFillTasks * fill_task_bytes(f.RMAX, f.WB);
+  const cudaError_t e = allow_smem(link_fill_kernel<CPL>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)((f.N + kFillTasks - 1) / kFillTasks));
+  link_fill_kernel<CPL><<<grid, kFillWarps * 32, smem, s>>>(
+      f.a, f.la, f.ta, f.base, f.lb, f.text, f.nw, f.T, f.N, f.RMAX, f.WB,
+      f.sc, f.score, f.bits);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -350,44 +668,49 @@ extern "C" int link_fill(int device, const void* a4, const void* la,
   if (N == 0) return (int)cudaSuccess;
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return (int)set;
-  const Scoring sc{match, mismatch, gap_open, gap_extend};
-  const dim3 grid((unsigned)((N + kFillWarps - 1) / kFillWarps));
-  const dim3 block(kFillWarps * 32);
+  const FillArgs f{static_cast<const uint32_t*>(a4),
+                   static_cast<const int32_t*>(la),
+                   static_cast<const int32_t*>(ta),
+                   static_cast<const int32_t*>(base),
+                   static_cast<const int32_t*>(lb),
+                   static_cast<const uint32_t*>(text), nw, T, N, RMAX, WB,
+                   Scoring{match, mismatch, gap_open, gap_extend},
+                   static_cast<int32_t*>(score),
+                   static_cast<uint8_t*>(bits)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* a = static_cast<const uint32_t*>(a4);
-  auto* l = static_cast<const int32_t*>(la);
-  auto* t = static_cast<const int32_t*>(ta);
-  auto* b = static_cast<const int32_t*>(base);
-  auto* m = static_cast<const int32_t*>(lb);
-  auto* x = static_cast<const uint32_t*>(text);
-  auto* o = static_cast<int32_t*>(score);
-  auto* d = static_cast<uint8_t*>(bits);
-  if (WB <= 32)
-    link_fill_kernel<1><<<grid, block, 0, s>>>(a, l, t, b, m, x, nw, T, N,
-                                               RMAX, WB, sc, o, d);
-  else if (WB <= 64)
-    link_fill_kernel<2><<<grid, block, 0, s>>>(a, l, t, b, m, x, nw, T, N,
-                                               RMAX, WB, sc, o, d);
-  else
-    link_fill_kernel<3><<<grid, block, 0, s>>>(a, l, t, b, m, x, nw, T, N,
-                                               RMAX, WB, sc, o, d);
-  return (int)cudaGetLastError();
+  switch ((WB + kGroup - 1) / kGroup) {  // columns a lane
+    case 1: return (int)launch_fill<1>(f, s);
+    case 2: return (int)launch_fill<2>(f, s);
+    case 3: return (int)launch_fill<3>(f, s);
+    case 4: return (int)launch_fill<4>(f, s);
+    case 5: return (int)launch_fill<5>(f, s);
+    case 6: return (int)launch_fill<6>(f, s);
+    case 7: return (int)launch_fill<7>(f, s);
+    case 8: return (int)launch_fill<8>(f, s);
+    case 9: return (int)launch_fill<9>(f, s);
+    case 10: return (int)launch_fill<10>(f, s);
+    case 11: return (int)launch_fill<11>(f, s);
+    default: return (int)launch_fill<12>(f, s);
+  }
 }
 
 // link_walk: bits (N, RMAX + 1, WB) uint8 from link_fill; la, base, lb (N,)
 // int32; packed (N, STEPS/8) uint32; n_steps (N,) int32; complete (N,)
-// bool. STEPS % 8 == 0.
+// bool. STEPS % 8 == 0, 1 <= WB <= 96.
 extern "C" int link_walk(int device, const void* bits, const void* la,
                          const void* base, const void* lb, int N, int RMAX,
                          int WB, int STEPS, void* packed, void* n_steps,
                          void* complete, void* stream) {
-  if (N < 0 || RMAX < 0 || WB < 1 || STEPS < 8 || STEPS % 8)
+  if (N < 0 || RMAX < 0 || WB < 1 || WB > kMaxWB || STEPS < 8 || STEPS % 8)
     return (int)cudaErrorInvalidValue;
   if (N == 0) return (int)cudaSuccess;
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return (int)set;
-  const dim3 grid((unsigned)((N + kWalkThreads - 1) / kWalkThreads));
-  link_walk_kernel<<<grid, kWalkThreads, 0,
+  const int smem = kWalkTasks * 2 * walk_tile_bytes(WB);
+  const cudaError_t e = allow_smem(link_walk_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((N + kWalkTasks - 1) / kWalkTasks));
+  link_walk_kernel<<<grid, kWalkWarps * 32, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bits), static_cast<const int32_t*>(la),
       static_cast<const int32_t*>(base), static_cast<const int32_t*>(lb), N,

@@ -4,10 +4,11 @@ versions.
 The counterpart of the two lax.scans of vg_tpu/ops/device_links.py (the
 fill, :110-166, and the walk, :186-221), which XLA compiles into one
 program; no Pallas kernel. Two kernels in csrc/link_engine.cu (CUDA C++
-for sm_90a) replace them: `link_fill` (a warp per task, the band in
-registers) and `link_walk` (a thread per task); the source note says what
-bounds each and why it is built as it is. ops/device_links.link_engine
-runs the two in turn.
+for sm_90a) replace them: `link_fill` (eight lanes a task, each holding
+consecutive band columns in registers) and `link_walk` (four lanes a
+task, stepping through tiles of the task's bits in shared memory); the
+source note says what bounds each and why it is built as it is.
+ops/device_links.link_engine runs the two in turn.
 
 Each wrapper launches its kernel for CUDA tensors (counted in
 `<wrapper>.launches`) and runs its plain PyTorch version (`<wrapper>_ref`)
@@ -34,8 +35,16 @@ from .cuda_seed import _cuda_or_cpu
 _SRC = cuda_build.PKG / "csrc" / "link_engine.cu"
 NEG = -(1 << 28)
 U32 = 0xFFFFFFFF
-MAX_WB = 96                # band columns a warp holds (three a lane)
+MAX_WB = 96                # band columns a group holds (twelve a lane)
 MAX_RMAX = 1024            # read rows a fill block's shared memory holds
+# the kernels' layout, for ops/link_cases.py's traps and the CPU model of
+# the designs: equal to kGroup, kFillTasks, ... in csrc/link_engine.cu
+FILL_LANES = 8             # lanes a fill task
+FILL_WARP_TASKS = 4
+FILL_BLOCK_TASKS = 32      # tasks a fill block orders by rows
+WALK_WARP_TASKS = 8        # 4 lanes a walk task
+WALK_BLOCK_TASKS = 32      # tasks a walk block orders by rows
+WALK_TILE_ROWS = 16        # rows of a walk tile in shared memory
 SCORE_LIMIT = 1 << 16      # each scoring parameter lies in [0, this)
 # int32 operations of the plain recurrence a band cell (link_fill_ref's
 # row body, element by element): j 1, inb 4, the match bit 2, sub 1, diag

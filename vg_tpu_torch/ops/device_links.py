@@ -9,16 +9,17 @@ This module batches every slow link of a read batch into one device pass,
 two kernels (ops/cuda_links.py, csrc/link_engine.cu):
 
   fill:      banded affine DP in diagonal space (offset c = j - i - base,
-             base = min(0, d) - B, d = lb - la), a warp per task on the
-             card; per-cell traceback DECISION BITS (diag-ok / E-selected
+             base = min(0, d) - B, d = lb - la), eight lanes a task on
+             the card; per-cell traceback DECISION BITS (diag-ok / E-selected
              / E-extend / F-extend / match) are exactly the equality
              checks the host traceback re-derives, so the walk reproduces
              the host edit sequence bit for bit. The in-row E scan uses
              the lazy-E identity (opening from an H that equals E never
              beats extending while gap_open >= gap_extend), one prefix max
              a row.
-  traceback: a walk of every problem (a thread per task on the card, one
-             bits byte a step), emitting 4-bit ops packed 8 a word.
+  traceback: a walk of every problem (four lanes a task on the card,
+             reading the bits from tiles of rows in shared memory, one
+             byte a step), emitting 4-bit ops packed 8 a word.
 
 CUDA tensors launch the two kernels; CPU tensors run their plain torch
 versions (cuda_links.link_fill_ref, link_walk_ref), the loop of torch ops

@@ -25,14 +25,40 @@ kernels could leave their plain versions:
   min(0, d) - B, text offsets outside [0, T);
 - "ragged_n": N = 45, not a multiple of 32 (nor of the fill's 4 tasks a
   block); the other cases are ragged too.
+
+The fill puts a task on 8 lanes (four tasks a warp), the walk on 4 lanes
+(eight a warp); each orders a block's 32 tasks by rows, and
+the walk reads tiles of R = 16 rows (cuda_links.FILL_LANES,
+FILL_WARP_TASKS, WALK_WARP_TASKS, the BLOCK_TASKS, WALK_TILE_ROWS). The
+cases at those edges:
+
+- "tile_edges": la at R - 1, R, R + 1, 2R - 1, 2R, 2R + 1, RMAX - 1 and
+  RMAX, with the final column on each edge of a fill lane's columns
+  (CPL = ceil(WB / 8) of them);
+- "ragged_warp": warps whose tasks run 0, 1, a middle count and RMAX
+  rows, both in the tasks' order (quads) and after a block orders them
+  (a block of RMAX rows but for three);
+- "ins_tile_edge": insertions of 3-12 read bases whose rows cross the
+  first and second tile edges of the walk (rows la - R and la - 2R);
+- "row_below_zero_tile": walks that reach row -1 (F moves only, or past
+  b's end) from la = R - 1, R, R + 1 and 2R, so that the last tile ends
+  at row 0 or one row above it;
+- "narrow_band" / "wide_band": B = 8 (WB = 33, 5 columns a lane, the last
+  lane empty) and B = 23 (WB = 93, 12 columns a lane, the most the fill
+  takes); every case gives its B under "B", and WB = 4B + 1.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .cuda_links import FILL_LANES, WALK_TILE_ROWS as TILE_ROWS
+
 DEFAULT_SCORING = (1, 4, 6, 1)     # match, mismatch, gap_open, gap_extend
 CASES = ("row_below_zero", "text_start", "text_end", "d_2b", "la_rmax",
-         "extend_ties", "open_equals_extend", "odd_coordinates", "ragged_n")
+         "extend_ties", "open_equals_extend", "odd_coordinates", "ragged_n",
+         "tile_edges", "ragged_warp", "ins_tile_edge", "row_below_zero_tile",
+         "narrow_band", "wide_band")
+CASE_B = {"narrow_band": 8, "wide_band": 23}   # the cases with their own B
 _NIB = np.arange(8, dtype=np.uint32) * 4
 
 
@@ -144,13 +170,20 @@ def _indel_read(rng, src, la, n_indels=3):
     return a[:la]
 
 
+def lane_columns(B: int) -> int:
+    """CPL: the band columns a fill lane holds at WB = 4B + 1."""
+    return -(-(4 * B + 1) // FILL_LANES)
+
+
 def link_case(name: str, seed: int = 0, RMAX: int = 256, B: int = 16,
               T: int = 4000) -> dict:
     """One of CASES: {"text": (T,) uint8, "arrays": (a4 (N, RMAX/8) uint32,
     la, ta, base, lb (N,) int32), "scoring": (match, mismatch, gap_open,
-    gap_extend)}."""
+    gap_extend), "B": the band radius the arrays are built for (WB = 4B +
+    1)}."""
     if name not in CASES:
         raise ValueError(f"unknown link case {name!r}")
+    B = CASE_B.get(name, B)
     rng = np.random.default_rng([seed, CASES.index(name), RMAX])
     text = (_repeat_text(rng, T) if name in ("extend_ties",
                                              "open_equals_extend")
@@ -220,6 +253,63 @@ def link_case(name: str, seed: int = 0, RMAX: int = 256, B: int = 16,
             ta = (-W, T + 5, int(rng.integers(0, T)))[k % 3 if k % 2
                                                       else 2]
             t.add(rng.integers(0, 5, max(la, 0)), ta, lb, base=base, la=la)
+    elif name == "tile_edges":
+        R, cpl = TILE_ROWS, lane_columns(B)
+        las = (R - 1, R, R + 1, 2 * R - 1, 2 * R, 2 * R + 1, RMAX - 1, RMAX)
+        # final column cf = max(d, 0) + B: each lane edge in [B, 3B]
+        edges = [e for g in range(1, FILL_LANES + 1)
+                 for e in (g * cpl - 1, g * cpl) if B <= e <= 3 * B]
+        for k in range(61):
+            la = las[k % len(las)]
+            d = edges[k % len(edges)] - B if k % 5 else -int(
+                rng.integers(1, W + 1))
+            t.link(rng, text, la, int(rng.integers(0, T - la - W)), la + d)
+    elif name == "ragged_warp":
+        mid = RMAX // 2 + 3
+        order = [RMAX] * 29
+        for k, la in zip((2, 7, 12), (0, 1, mid)):   # in the first 16
+            order.insert(k, la)
+        order += [(0, 1, mid, RMAX)[(k + k // 4) % 4] for k in range(28)]
+        for la in order:
+            if la == 0:            # padding, as DeviceLinkAligner pads
+                t.add([], 0, 1, base=0)
+                continue
+            lb = max(1, la + int(rng.integers(-W, W + 1)))
+            t.link(rng, text, la, int(rng.integers(0, T - lb)), lb)
+    elif name == "ins_tile_edge":
+        for k in range(37):
+            n = int(rng.integers(3, 13))
+            L = int(rng.integers(2 * TILE_ROWS + 40, RMAX - n + 1))
+            ta = int(rng.integers(0, T - L))
+            src = text[ta : ta + L]
+            edge = TILE_ROWS * (1 + k % 2)        # rows la - R, la - 2R
+            # the inserted codes take rows q + 1 .. q + n of la = L + n
+            q = L + n - edge - int(rng.integers(1, n))
+            ins = rng.integers(0, 4, n).astype(np.uint8)
+            t.add(np.concatenate([src[:q], ins, src[q:]]), ta, L)
+    elif name == "row_below_zero_tile":
+        R = TILE_ROWS
+        for k in range(42):
+            la = (R - 1, R, R + 1, 2 * R)[k % 4]
+            if k % 7 == 6:         # full rows between them
+                t.link(rng, text, RMAX, int(rng.integers(0, T - RMAX - W)),
+                       RMAX + int(rng.integers(-W, W + 1)))
+            elif k % 2:            # left of the text: F moves only
+                base = -la - int(rng.integers(1, B + 1))
+                t.add(rng.integers(0, 4, la), int(rng.integers(0, T)),
+                      -int(rng.integers(1, B + 1)), base=base)
+            else:                  # past b's end
+                base = -int(rng.integers(0, min(B, la - 1)))
+                t.add(rng.integers(0, 4, la), int(rng.integers(0, T)),
+                      int(rng.integers(0, la + base)), base=base)
+    elif name in CASE_B:
+        for k in range(51):
+            if k % 13 == 12:
+                t.add([], 0, 1, base=0)
+                continue
+            la = (RMAX, int(rng.integers(1, RMAX + 1)))[k % 2]
+            lb = max(1, la + (W, -W, int(rng.integers(-W, W + 1)))[k % 3])
+            t.link(rng, text, la, int(rng.integers(0, T - lb)), lb)
     else:                          # ragged_n
         for k in range(45):
             if k % 9 == 8:         # padding, as DeviceLinkAligner pads
@@ -228,4 +318,4 @@ def link_case(name: str, seed: int = 0, RMAX: int = 256, B: int = 16,
             la = int(rng.integers(1, RMAX + 1))
             lb = max(1, la + int(rng.integers(-W, W + 1)))
             t.link(rng, text, la, int(rng.integers(0, T - lb)), lb)
-    return {"text": text, "arrays": t.arrays(), "scoring": scoring}
+    return {"text": text, "arrays": t.arrays(), "scoring": scoring, "B": B}
