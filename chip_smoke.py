@@ -37,15 +37,20 @@ kernels' launch counts set to 0 just before it and read just after:
   (the link engine, ops/device_links.py: the link_fill and link_walk
   kernels, csrc/link_engine.cu); 16 reads warm the native engine, the
   device engine warms on the 496 timed reads. The two engines' 496
-  records must be byte-identical. Then the two link kernels against
-  their plain versions on the card: both buckets' inputs of the batch,
-  ops/link_cases.py, and a bucket-768 batch of 43,008 tasks;
+  records must be byte-identical, on the timed pass and on the pass under
+  the profiler, each with one launch of each link kernel a bucket. Then
+  the two link kernels against their plain versions on the card: both
+  buckets' inputs of the batch, ops/link_cases.py, and a bucket-768 batch
+  of 43,008 tasks;
 - `vg map -A` (MEMMapper, qual_adjusted=True): 150 bp reads with
   qualities from ReadSimulator, one warmup batch and 8 timed batches of
   512 through map_batch, the DP's quality entry (banded_dp_qual_packed) on
-  the card; placement against the simulator's truth and the first timed
-  batch against a CPU twin. The quality entry is then held against its
-  plain version on ops/dp_cases.qual_case and on the warmup batch;
+  the card, one launch a timed batch on the route the rule
+  (cuda_align.qual_lanes) gives; placement against the simulator's truth
+  and the first timed batch against a CPU twin. The quality entry is then
+  held against its plain version on both routes (1 and 4 lanes a slot):
+  on ops/dp_cases.qual_case, on qual_case and dp_cases.split_case sized
+  so that the rule picks each route, and on the warmup batch;
 - surject: the host-seeded path's first 8,192 records to SAM records
   (Surjector.surject_batch), through BAM and back, as bench.py's surject
   sidecar;
@@ -77,9 +82,9 @@ instruction kinds. --compare-parent DIR
 loads the vg_tpu_torch package of another checkout (DIR, e.g. a
 `git archive` of the parent commit), builds its kernels, and times its
 softcap_compact, cluster_topc, argsort_i32 and packed banded DP against
-this tree's on the main path's inputs, and its link_fill and link_walk on
-the long-read batch's two buckets, in turns, after checking that both
-give the same outputs.
+this tree's on the main path's inputs, its link_fill and link_walk on
+the long-read batch's two buckets, and its quality entry on the vg map
+batch, in turns, after checking that both give the same outputs.
 
 Output: one line per phase, then a JSON line with the kernels' numbers,
 the card's name and power limit, and as the last line
@@ -281,11 +286,14 @@ def kernel_wrappers() -> dict:
 
 
 def reset_launches() -> None:
-    """Launch counts and the card's count of block-path cluster rows to 0."""
-    from vg_tpu_torch.ops import cuda_seed
+    """Launch counts (the quality entry's by route too) and the card's
+    count of block-path cluster rows to 0."""
+    from vg_tpu_torch.ops import cuda_align, cuda_seed
 
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    cuda_align.banded_scores_qual_packed.routes = dict.fromkeys(
+        cuda_align.QUAL_LANES, 0)
     cuda_seed.block_rows_reset()
 
 
@@ -359,11 +367,16 @@ def phase_build():
                     or "Compiling entry" in line):
                 log("  ptxas: " + line.strip())
     sass_check(cuda_align.build_info["path"])
+    for name, loop in sass_loops(cuda_align.build_info["path"],
+                                 QUAL_KERNELS, rows=True).items():
+        log(f"  sass {name}: {loop_text(loop)}")
     for name, loop in link_loops(cuda_links.build_info["path"]).items():
         log(f"  sass {name}: {loop_text(loop)}")
 
 
 DPX_OPS = ("VIADDMNMX", "VIMNMX3")     # Hopper's fused DP instructions
+# the quality entry's kernels: one slot a thread, and the split route
+QUAL_KERNELS = "banded_dp_qual_split_kernel|banded_dp_qual_kernel"
 _pipes = {}
 
 
@@ -436,30 +449,41 @@ def sass_lines(lib_path):
 
 def link_loops(lib_path) -> dict:
     """The largest loop of each link kernel in the library's SASS (the
-    fill's row loop, the walk's step loop): the span from a backward
-    branch's target to the branch, its instructions and, among them, its
-    shuffles, votes, shared and global loads and stores."""
+    fill's row loop, the walk's step loop)."""
+    return sass_loops(lib_path, "link_fill_kernel|link_walk_kernel")
+
+
+def sass_loops(lib_path, names, rows=False) -> dict:
+    """The largest loop of each kernel whose name matches `names` (a
+    regex alternation), by instantiation (name<template ints>): the span
+    from a backward branch's target to the branch, its instructions and,
+    among them, its shuffles, votes, shared and global loads and stores.
+    With `rows`, the DP's row loop instead: the loop with the most
+    VIADDMNMX."""
     funcs = {}
     for fn, addr, op, rest in sass_lines(lib_path):
-        m = re.search(r"(link_fill_kernel|link_walk_kernel)(?:ILi(\d+)E)?",
-                      fn)
+        m = re.search(rf"({names})(?:I((?:Li\d+E)+)E)?", fn)
         if m:
-            key = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            ints = re.findall(r"Li(\d+)E", m.group(2) or "")
+            key = m.group(1) + (f"<{', '.join(ints)}>" if ints else "")
             funcs.setdefault(key, []).append((addr, op, rest))
     loops = {}
     for key, ins in sorted(funcs.items()):
         best = None
+        size = (lambda b: sum(o.startswith("VIADDMNMX") for o in b)) \
+            if rows else len
         for addr, op, rest in ins:
             tgt = re.search(r"0x([0-9a-f]+)", rest)
             if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
                 body = [o for a, o, _ in ins
                         if int(tgt.group(1), 16) <= a <= addr]
-                if best is None or len(body) > len(best):
+                if best is None or size(body) > size(best):
                     best = body
         kinds = {}
         for o in best or []:
             k = o.split(".")[0]
             if k in ("SHFL", "VOTE", "REDUX", "LDS", "STS", "LDG", "STG",
+                     "VIADDMNMX", "VIMNMX3",
                      "BAR", "WARPSYNC"):
                 kinds[k] = kinds.get(k, 0) + 1
         loops[key] = dict(instructions=len(ins),
@@ -469,7 +493,7 @@ def link_loops(lib_path) -> dict:
 
 
 def loop_text(loop) -> str:
-    return (f"{loop['instructions']} instructions; largest loop "
+    return (f"{loop['instructions']} instructions; loop "
             f"{loop['loop_instructions']} "
             f"({json.dumps(loop['loop_kinds'])})")
 
@@ -478,19 +502,22 @@ def sass_check(lib_path):
     """cuobjdump -sass of the banded-DP library: for each kernel, its
     instruction count and its DPX and other integer min/max instructions.
     Fails unless every instantiation of each DP kernel (the 16x2, the
-    int32 and the quality entry's) issues both DPX forms."""
+    int32 and the quality entry's one slot a thread) issues both DPX
+    forms, and each of the quality entry's split route VIADDMNMX (its row
+    maxima over 2 to 9 columns a lane may take no VIMNMX3)."""
     funcs = {}
     for name, _, op, _ in sass_lines(lib_path):
         ops = funcs.setdefault(name, {})
         ops[op] = ops.get(op, 0) + 1
     for fn, ops in sorted(funcs.items()):
-        if not re.search(r"banded_dp(16|_qual)?_kernel", fn):
+        if not re.search(r"banded_dp(16|_qual|_qual_split)?_kernel", fn):
             continue
         short = re.sub(r"^_ZN\w*?banded_dp", "banded_dp", fn)
         mnmx = {op: n for op, n in sorted(ops.items()) if "MNMX" in op}
         log(f"  sass {short[:60]}: {sum(ops.values())} instructions; "
             f"min/max {json.dumps(mnmx)}")
-        missing = [d for d in DPX_OPS
+        need = DPX_OPS[:1] if "qual_split" in fn else DPX_OPS
+        missing = [d for d in need
                    if not any(op.split(".")[0] == d for op in ops)]
         assert not missing, f"{fn} issues no {missing}"
 
@@ -1117,7 +1144,9 @@ def phase_compare_parent(root, seed_inputs, dp_inputs, sf, B, C, card):
     """The parent tree's softcap_compact, cluster_topc, argsort_i32 and
     packed banded DP against this tree's on the main path's inputs: the
     same outputs, then device and enqueue times in turns (parent, this,
-    this, parent)."""
+    this, parent). The parent's link kernels (compare_parent_links) and
+    quality entry (compare_parent_qual) meet theirs where their inputs
+    are made, in the long-read and vg map phases."""
     from vg_tpu_torch.ops import cuda_align, cuda_seed
 
     sc_in, cl_in, key = seed_inputs
@@ -1195,20 +1224,26 @@ def profiled(fn):
     """Run fn under torch.profiler: (its device events as (name, µs),
     wall seconds). Reads the profiler's raw events: building its event
     tree (`events()`) costs tens of µs an event, and a streamed paired
-    path records tens of thousands of them."""
+    path records tens of thousands of them. The profiler records the
+    kernels that the port's own libraries launch only once a torch
+    kernel has run in the profiled region, so one short spin kernel runs
+    first, before the wall clock starts, and its event is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100)
+        torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     return [(e.name(), e.duration_ns() / 1e3)
             for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA], wall
+            if e.device_type() == DeviceType.CUDA
+            and "spin_kernel" not in e.name()], wall
 
 
 def phase_profile(pm, pairs, bs, n_batches, label, top=12):
@@ -1878,7 +1913,13 @@ def phase_longread(haps, idx, card, seed, parent=None):
         f"{two_pass - inner - engine_s:.4f} s; map_batch_encoded's own "
         f"Python (encoding, reverse complements, winners, MAPQ, refpos) "
         f"{dt_d - two_pass - host['native_emit_runs_gam']:.4f} s")
-    events, wall = profiled(lambda: dv.map_batch_encoded(timed))
+    # the profiled pass: its own launches (counts reset) and records
+    reset_launches()
+    recs_p = []
+    events, wall = profiled(lambda: recs_p.extend(
+        dv.map_batch_encoded(timed)))
+    launches_p = kernel_launches()
+    n_diff_p = sum(1 for a, b in zip(recs_n, recs_p) if bytes(a) != bytes(b))
     copies = sum(1 for name, _ in events
                  if "memcpy" in name.lower() or "memset" in name.lower())
     busy = sum(us for _, us in events) / 1e3
@@ -1892,7 +1933,11 @@ def phase_longread(haps, idx, card, seed, parent=None):
         f"events ({len(events) - copies} kernels, {copies} copies/sets) in "
         f"{wall:.3f} s wall, device busy {busy:.2f} ms (idle "
         f"{100 - 100 * busy / (1e3 * wall):.2f}%); "
-        + ", ".join(f"{k} {n}x {ms:.3f} ms" for k, (n, ms) in ours.items()))
+        + ", ".join(f"{k} {n}x {ms:.3f} ms" for k, (n, ms) in ours.items())
+        + f"; launches counted in the pass: link_fill "
+        f"{launches_p['link_fill']}, link_walk {launches_p['link_walk']}; "
+        f"{n_diff_p} of {len(recs_p)} records differ from the native "
+        f"engine's")
 
     # each kernel against its plain version on the card
     sc = dv.scoring
@@ -1973,6 +2018,10 @@ def phase_longread(haps, idx, card, seed, parent=None):
     for name in ("link_fill", "link_walk"):
         assert launches[name] == len(buckets), \
             f"{name} launched {launches[name]} times on the timed batch"
+        assert launches_p[name] == len(buckets), \
+            f"{name} launched {launches_p[name]} times in the profiled pass"
+    assert len(recs_p) == n_timed and n_diff_p == 0, \
+        f"the profiled pass: {n_diff_p} records differ"
     kernels = {}
     for name in ("link_fill", "link_walk"):
         mism = [link_mismatches(d, name) for d in diffs.values()]
@@ -2024,7 +2073,8 @@ def phase_vg_map(haps, mem, card, seed):
     MEMMapper(qual_adjusted=True, batch_reads=512) driven by map_batch on
     the card, 1 warmup batch, then VGMAP_BATCHES timed batches with the
     launch counts set to 0 before them. Checks: the quality entry
-    launched once a batch, >= 95% placed against the simulator's truth,
+    launched once a batch, each on the route qual_lanes gives the batch's
+    slots, >= 95% placed against the simulator's truth,
     the first timed batch's records byte-identical to a device="cpu"
     twin's. Returns the numbers (with the timed reads and their records
     as JSON, the CLI phase's reference) and the quality entry's inputs on
@@ -2066,6 +2116,11 @@ def phase_vg_map(haps, mem, card, seed):
     torch.cuda.synchronize()
     dt = time.time() - t0
     n = kernel_launches()
+    routes = dict(cuda_align.banded_scores_qual_packed.routes)
+    a, kw = captured[0]
+    N = a[2].shape[0] * a[7].shape[1]
+    G = cuda_align.qual_lanes(N, cuda_align.sm_count(torch.device("cuda")),
+                              a[2].shape[1])
     frac, n_truth = refpos_placed(recs, truth[bs:])
     first = reads[bs : 2 * bs]
     events, wall = profiled(lambda: mapper.map_batch(first))
@@ -2076,19 +2131,23 @@ def phase_vg_map(haps, mem, card, seed):
     n_diff = sum(1 for a, b in zip(recs[:bs], cpu_recs) if a != b)
     log(f"vg map (MEMMapper, qual_adjusted, batch {bs}): {len(recs)} reads "
         f"in {dt:.2f} s = {len(recs) / dt:.1f} reads/s; launches "
-        f"{json.dumps(n)}; {100 * frac:.2f}% placed within 100 bp of the "
+        f"{json.dumps(n)}, the quality entry's by lanes a slot "
+        f"{json.dumps(routes)} (N = {N} slots: the rule gives G = {G}); "
+        f"{100 * frac:.2f}% placed within 100 bp of the "
         f"simulator's truth ({n_truth} reads with a truth position); one "
         f"batch under the profiler: device busy {busy:.2f} ms of "
         f"{wall:.3f} s wall (idle {100 - 100 * busy / (1e3 * wall):.2f}%); "
         f"card vs CPU twin (CPU {time.time() - t1:.2f} s): {n_diff} of {bs} "
         f"records differ, on {card}")
     assert len(recs) == bs * VGMAP_BATCHES, len(recs)
-    assert n["banded_dp_qual"] >= VGMAP_BATCHES, n
+    assert n["banded_dp_qual"] == VGMAP_BATCHES, n
+    assert routes == {g: VGMAP_BATCHES * (g == G) for g in routes}, routes
     assert frac >= 0.95, frac
     assert len(cpu_recs) == bs and n_diff == 0, \
         f"vg map: {n_diff} records differ between the card and the CPU"
     return dict(reads_per_s=len(recs) / dt, seconds=dt, placed=frac,
-                launches=n["banded_dp_qual"], busy_ms=busy, wall_s=wall,
+                launches=n["banded_dp_qual"], lanes=G, busy_ms=busy,
+                wall_s=wall,
                 reads=reads[bs:], json=[a.to_json_str() for a in alns]), \
         captured[0]
 
@@ -2106,53 +2165,114 @@ def qual_case_tensors(rng, text, R, B, tabs=None):
             + [put(np.asarray(t, np.int32)) for t in tabs])
 
 
-def phase_qual_kernel(text, vgmap_inputs):
+def phase_qual_kernel(text, vgmap_inputs, card, parent=None):
     """The quality entry (banded_dp_qual_packed) against its plain version
-    on the card, exact: dp_cases.qual_case on the fixture's text at B = 8,
-    12 and 16 (both strands, rlen < RL and rlen 0 on valid slots, N bases,
-    phred 0-2 and 61-93, quality strings shorter than the read, windows
-    cut by lo / hi or the text's ends, invalid slots), the same at B = 16
-    with tables of either sign, and the vg map phase's own first batch.
-    Its launches here are checks, not counted. Times and the bound on the
-    vg map batch."""
+    on the card, exact, on both routes: dp_cases.qual_case on the
+    fixture's text at B = 8, 12 and 16 (both strands, rlen < RL and rlen 0
+    on valid slots, N bases, phred 0-2 and 61-93, quality strings shorter
+    than the read, windows cut by lo / hi or the text's ends, invalid
+    slots) and the same at B = 16 with tables of either sign, each on the
+    rule's route; for each route, G = 1 and 4 lanes a slot, qual_case and
+    dp_cases.split_case's cases on a batch sized so that the rule
+    (cuda_align.qual_lanes) picks it; the vg map phase's own first batch.
+    Each route's launches here are counted by the wrapper and by the
+    library and held to the calls made (checks, not the path's launches).
+    Times and the bound on the vg map batch; with `parent` (a checkout),
+    the parent's quality entry against this one on that batch."""
     from vg_tpu_torch.ops import cuda_align, dp_cases
 
+    dev = torch.device("cuda")
+    sms = cuda_align.sm_count(dev)
+    wrap = cuda_align.banded_scores_qual_packed
     rng = np.random.default_rng(6)
+    a, kw = vgmap_inputs
+    vg, b_vg = list(a), kw["band_radius"]
     cases = [(f"qual_case R=1024 B={b}", qual_case_tensors(rng, text, 1024, b),
-              b) for b in (8, 12, BAND)]
+              b, None) for b in (8, 12, BAND)]
     cases.append((f"qual_case R=1024 B={BAND}, tables of either sign",
                   qual_case_tensors(rng, text, 1024, BAND,
-                                    dp_cases.signed_tables(rng)), BAND))
-    a, kw = vgmap_inputs
-    cases.append(("vg map batch 0", list(a), kw["band_radius"]))
+                                    dp_cases.signed_tables(rng)), BAND, None))
+    put = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
+    for G in cuda_align.QUAL_LANES:
+        R = next(R for R in (256, 2048, 8192, 32768)
+                 if cuda_align.qual_lanes(R * 8, sms, 160) == G)
+        cases.append((f"qual_case R={R} B={BAND} (the rule's G = {G})",
+                      qual_case_tensors(rng, text, R, BAND), BAND, G))
+        for name in dp_cases.SPLIT_CASES:
+            args, tabs = dp_cases.split_case(name, rng, BAND, R=R)
+            cases.append((f"split case {name} R={R} B={BAND} (the rule's "
+                          f"G = {G})",
+                          [put(cuda_align.pack_text(args[0])), len(args[0])]
+                          + [put(x) for x in args[1:]]
+                          + [put(np.asarray(x, np.int32)) for x in tabs],
+                          BAND, G))
+    cases.append(("vg map batch 0", vg, b_vg, None))
     mism, err = 0, 0
-    for label, args, b in cases:
-        got = cuda_align.banded_scores_qual_packed(*args, band_radius=b)
+    calls = dict.fromkeys(cuda_align.QUAL_LANES, 0)
+    lib0 = cuda_align.qual_launches_by_route()
+    wrap0 = dict(wrap.routes)
+    for label, args, b, lanes in cases:
+        before = dict(wrap.routes)
+        got = wrap(*args, band_radius=b)
         torch.cuda.synchronize()
+        took = [G for G in calls if wrap.routes[G] != before[G]]
+        assert len(took) == 1, (label, took)
+        calls[took[0]] += 1
+        if lanes is not None:
+            assert took[0] == lanes, f"{label}: the rule took {took[0]} lanes"
         want = cuda_align.banded_scores_qual_packed_ref(*args, band_radius=b)
         bad, e = max_err((got,), (want,))
         log(f"banded_dp_qual vs plain, {label}: {tuple(got.shape)} {bad} "
-            f"mismatches, max |err| {e}, {int(args[-4].sum())} valid slots")
+            f"mismatches, max |err| {e}, {int(args[-4].sum())} valid slots, "
+            f"{took[0]} lanes a slot")
         mism += bad
         err = max(err, e)
+    lib = {G: n - lib0[G]
+           for G, n in cuda_align.qual_launches_by_route().items()}
+    by_wrap = {G: n - wrap0[G] for G, n in wrap.routes.items()}
+    log(f"banded_dp_qual launches in these checks by lanes a slot: calls "
+        f"{json.dumps(calls)}, wrapper {json.dumps(by_wrap)}, library "
+        f"{json.dumps(lib)}")
     if mism:
         raise AssertionError(f"banded_dp_qual disagrees with its plain "
                              f"version on {mism} slots")
-    args = list(a)
-    b = kw["band_radius"]
-    packed, reads, rlen, valid = args[0], args[2], args[5], args[-4]
-    nbytes, ops = cuda_align.dp_work(reads, rlen, valid, packed.numel(), b,
+    assert calls == by_wrap == lib, (calls, by_wrap, lib)
+    assert all(calls.values()), calls
+    packed, reads, rlen, valid = vg[0], vg[2], vg[5], vg[-4]
+    R, RL = reads.shape
+    G = cuda_align.qual_lanes(valid.numel(), sms, RL)
+    nbytes, ops = cuda_align.dp_work(reads, rlen, valid, packed.numel(), b_vg,
                                      source="qual",
-                                     tab_entries=args[-1].numel())
+                                     tab_entries=vg[-1].numel())
     res = time_entry(
-        lambda: cuda_align.banded_scores_qual_packed(*args, band_radius=b),
-        lambda: cuda_align.banded_scores_qual_packed_ref(*args,
-                                                         band_radius=b),
+        lambda: wrap(*vg, band_radius=b_vg),
+        lambda: cuda_align.banded_scores_qual_packed_ref(*vg,
+                                                         band_radius=b_vg),
         nbytes, ops)
-    return dict(res, mismatches=mism, max_abs_err=err,
-                shape=f"R={reads.shape[0]} C={valid.shape[1]} "
-                      f"RL={reads.shape[1]} B={b}",
+    if parent:
+        compare_parent_qual(parent, vg, b_vg, card)
+    return dict(res, mismatches=mism, max_abs_err=err, lanes=G,
+                check_launches=calls,
+                shape=f"R={R} C={valid.shape[1]} RL={RL} B={b_vg}",
                 valid=int(valid.sum()), slots=valid.numel())
+
+
+def compare_parent_qual(root, args, b, card) -> dict:
+    """The parent tree's quality entry against this tree's on the vg map
+    batch: the same scores, then device and enqueue times in turns."""
+    from vg_tpu_torch.ops import cuda_align
+
+    par = load_parent(root, "cuda_align")
+    t0 = time.time()
+    par.library()
+    log(f"parent banded_dp.cu built in {time.time() - t0:.1f} s from {root}")
+    fn = lambda m: (m.banded_scores_qual_packed(*args, band_radius=b),)
+    bad, _ = max_err(fn(par), fn(cuda_align))
+    assert bad == 0, f"banded_dp_qual: parent and this tree differ on {bad}"
+    res = {"banded_dp_qual": turns("banded_dp_qual on the vg map batch", fn,
+                                   {"parent": par, "this": cuda_align}, card)}
+    print(json.dumps({"compare_parent_qual": res}), flush=True)
+    return res
 
 
 def phase_surject(graph, recs, card):
@@ -2816,10 +2936,11 @@ def main(argv=None) -> int:
 
     # vg map with qualities and its DP entry; surject; pack and call
     vgmap, vgmap_inputs = phase_vg_map(haps, mem, card, args.seed)
-    qual = phase_qual_kernel(haps.text, vgmap_inputs)
+    qual = phase_qual_kernel(haps.text, vgmap_inputs, card,
+                             args.compare_parent)
     log(f"banded_dp_qual at {qual['shape']}, vg map batch 0 "
-        f"({qual['valid']} valid slots of {qual['slots']}): "
-        f"{timing_text(qual)} on {card}")
+        f"({qual['valid']} valid slots of {qual['slots']}, {qual['lanes']} "
+        f"lanes a slot): {timing_text(qual)} on {card}")
     del vgmap_inputs
     phase_surject(haps.graph, surject_recs, card)
     del surject_recs

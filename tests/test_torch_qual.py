@@ -5,7 +5,8 @@ version the wrapper runs for CPU tensors) against the XLA scan
 vg_tpu.ops.align.banded_scores_qual on ops/dp_cases.qual_case (both
 strands, rlen 0 on valid slots, N bases, phred 0-2 and 61-93, quality
 strings shorter than the read, windows cut by lo / hi, invalid slots),
-with qualadj's tables and with tables of either sign. The mappers:
+with qualadj's tables and with tables of either sign, and on
+dp_cases.split_case's cases of the split route. The mappers:
 GiraffeMapper and MEMMapper with qual_adjusted=True on bench.make_pangenome
 (60 kbp), records byte-identical to vg_tpu's, low-quality reads among
 them. All exact. The CUDA entry is held against its plain version in
@@ -85,6 +86,21 @@ def test_qual_dp_equals_jax(B, kind):
     assert (quals <= 2).any() and (quals > 60).any()
     assert (valid & (rlen[:, None] == 0)).any() and (args[1] == 4).any()
     assert (valid & args[-2]).any() and (valid & ~args[-2]).any()
+
+
+@pytest.mark.parametrize("name", dp_cases.SPLIT_CASES)
+@pytest.mark.parametrize("B", [8, 12, 16])
+def test_qual_dp_split_cases_equal_jax(B, name):
+    """The split route's cases (dp_cases.split_case: row counts mixed in a
+    warp, indels across lane edges, signed tables, phred past short
+    tables) through both port versions against the XLA scan, exact."""
+    args, tabs = dp_cases.split_case(name, np.random.default_rng(60 + B), B,
+                                     R=32)
+    want = jax_qual(args, tabs, B)
+    got, got_p = port_qual(args, tabs, B)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got_p, want)
+    assert (want > 0).any()
 
 
 def test_qual_dp_short_reads_and_haplotype_windows():

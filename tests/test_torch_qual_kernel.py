@@ -1,8 +1,10 @@
 """The banded-DP kernel's quality entry (csrc/banded_dp.cu,
 banded_dp_qual_packed, through ops/cuda_align.banded_scores_qual_packed)
-against its plain version, and `vg map` (MEMMapper with qual_adjusted) on
-the card against its CPU twin. Imports no JAX, so the `gpu` tests also run
-on a machine that has only the card's stack:
+against its plain version, each of its routes (1 and 4 lanes a slot, on
+batches sized so that the rule takes each) on dp_cases.qual_case and
+split_case, and `vg map` (MEMMapper with
+qual_adjusted) on the card against its CPU twin. Imports no JAX, so the
+`gpu` tests also run on a machine that has only the card's stack:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_qual_kernel.py
 
@@ -75,8 +77,9 @@ def test_cpu_tensors_run_the_plain_version():
 @pytest.mark.parametrize("B", [8, 12, 16])
 def test_qual_entry_equals_plain_version_on_card(cuda_device, B, kind):
     """Every case of dp_cases.qual_case, at each band radius, with
-    qualadj's tables and with tables of either sign. The int32 route: the
-    library's 16/32 route counters do not move."""
+    qualadj's tables and with tables of either sign, on the route the rule
+    gives 8,192 slots. Int32 cells: the library's 16/32 route counters
+    of the other entries do not move."""
     packed, T, t = case_tensors(70 + B, B, cuda_device, R=1024,
                                 T=200_000)
     tabs = tables(kind, cuda_device)
@@ -89,6 +92,68 @@ def test_qual_entry_equals_plain_version_on_card(cuda_device, B, kind):
     assert cuda_align.launches_by_route() == routes
     want = cuda_align.banded_scores_qual_packed_ref(packed, T, *t, *tabs,
                                                     band_radius=B)
+    assert torch.equal(got, want)
+
+
+def route_reads(lanes, dev):
+    """Reads of a batch of 8 candidates on which the rule takes `lanes`
+    lanes a slot on this card (RL = 160)."""
+    sms = cuda_align.sm_count(dev)
+    return next(R for R in (256, 2048, 8192, 32768)
+                if cuda_align.qual_lanes(R * 8, sms, 160) == lanes)
+
+
+def split_tensors(name, B, dev, R):
+    args, tabs = dp_cases.split_case(name, np.random.default_rng(80 + B), B,
+                                     R=R)
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return ([put(cuda_align.pack_text(args[0])), len(args[0])]
+            + [put(a) for a in args[1:]]
+            + [put(np.asarray(t, np.int32)) for t in tabs])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ("qual_case",) + dp_cases.SPLIT_CASES)
+@pytest.mark.parametrize("B", [8, 12, 16])
+@pytest.mark.parametrize("lanes", cuda_align.QUAL_LANES)
+def test_each_route_equals_plain_version_on_card(cuda_device, lanes, B,
+                                                 name):
+    """Each route of the quality entry (1 and 4 lanes a slot), on a batch
+    sized so that the rule takes it, on qual_case and on each split case:
+    exact, one launch of that route counted by the wrapper and by the
+    library."""
+    R = route_reads(lanes, cuda_device)
+    if name == "qual_case":
+        packed, T, t = case_tensors(90 + B, B, cuda_device, R=R)
+        args = [packed, T, *t, *tables("signed", cuda_device)]
+    else:
+        args = split_tensors(name, B, cuda_device, R)
+    routes = dict(cuda_align.banded_scores_qual_packed.routes)
+    lib = cuda_align.qual_launches_by_route()
+    got = cuda_align.banded_scores_qual_packed(*args, band_radius=B)
+    torch.cuda.synchronize()
+    want = cuda_align.banded_scores_qual_packed_ref(*args, band_radius=B)
+    assert torch.equal(got, want), int((got != want).sum())
+    bump = lambda d: {G: n + (G == lanes) for G, n in d.items()}
+    assert cuda_align.banded_scores_qual_packed.routes == bump(routes)
+    assert cuda_align.qual_launches_by_route() == bump(lib)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,RL", [(1, 160), (256, 160), (512, 160),
+                                  (1584, 160), (1600, 160), (8192, 160),
+                                  (16, 1100)])
+def test_default_route_is_the_rule(cuda_device, R, RL):
+    """The wrapper takes qual_lanes(R C, the card's SMs, RL): on 132 SMs,
+    4 lanes a slot up to 1,584 reads of 8 candidates, one slot a thread
+    from 1,600 and for reads of 1,100 rows."""
+    packed, T, t = case_tensors(5, 16, cuda_device, R=R, RL=RL, L=RL - 10)
+    args = [packed, T, *t, *tables("qualadj", cuda_device)]
+    G = cuda_align.qual_lanes(R * 8, cuda_align.sm_count(cuda_device), RL)
+    before = cuda_align.banded_scores_qual_packed.routes[G]
+    got = cuda_align.banded_scores_qual_packed(*args, band_radius=16)
+    assert cuda_align.banded_scores_qual_packed.routes[G] == before + 1
+    want = cuda_align.banded_scores_qual_packed_ref(*args, band_radius=16)
     assert torch.equal(got, want)
 
 

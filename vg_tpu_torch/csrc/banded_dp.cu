@@ -18,10 +18,11 @@
 // A fourth entry, banded_dp_qual_packed, replaces no TPU kernel: it is the
 // quality-adjusted DP that vg_tpu runs as an XLA scan
 // (vg_tpu/ops/align.py:164 banded_scores_qual), on the packed words. It
-// runs the int32 route with each row's match and mismatch scores read from
+// runs int32 cells with each row's match and mismatch scores read from
 // phred-indexed tables (kept in shared memory) at the row's oriented
 // quality, and the two full-length bonuses from a third table at the first
-// and the last oriented base's quality (QualScores below).
+// and the last oriented base's quality (QualScores below), on one of two
+// routes (see "The quality entry's routes" below).
 //
 // The DP: band W = 2B + 1, match +m / mismatch -x, gap open o / extend e,
 // full-length bonus at both read ends, a zero floor (free soft clips), and
@@ -104,6 +105,68 @@
 //   [lo, hi) ∩ [0, T) range as a bit mask; the byte and window sources
 //   compare 32 codes.
 // - The launch sets the device only when it changes (cudaGetDevice first).
+//
+// The quality entry's routes. What bounds it is the batch: `vg map -A`
+// maps 512 reads x 8 candidates, N = 4,096 slots, about 58% valid. One
+// slot a thread (banded_dp_qual_kernel, the int32 body above) gives some
+// 75 running warps, fewer than one a scheduler on 32 of the 132 SMs, and
+// its time is one warp's chain: 150 rows of 33 cells at 7.5 instructions
+// a cell on a pipe that issues half an instruction a cycle. The split
+// route (banded_dp_qual_split_kernel) gives a slot G = kSplitLanes = 4
+// adjacent lanes of one warp, lane g holding the CPL = ceil(W / G)
+// consecutive columns g CPL .. g CPL + CPL - 1, as the link engine's fill
+// (csrc/link_engine.cu) does:
+// - Row i - 1's G and F of the lane's column past its last come from lane
+//   g + 1 (one shuffle each; the last lane's is a masked column). E' runs
+//   along the lane's columns from -inf; the carry into lane g is the max
+//   of lanes 0 .. g - 1's totals, each decayed by CPL e a lane, read by
+//   three independent shuffles whose latencies overlap (a log-step scan
+//   would chain them), and is folded into the lane's columns, one
+//   VIADDMNMX a column.
+// - Columns past W run unmasked: column W is pinned to the cell above
+//   the band (G = kNeg - o, F = kNeg) after every row, so that column W -
+//   1 reads what the int32 body reads there, and the row maxima take only
+//   columns up to W - 1 (two running bests a lane, split at W - 1's
+//   position, and the last row's two maxima), reduced over the group once
+//   after the last row.
+// - Inputs: each slot's window words (4 bases and the empty mask, up to
+//   row RL - 1 at the last lane's offset) and its rows' (quality, base)
+//   are built once into shared memory by the group's lanes, so that a row
+//   reads shared memory only: its bits (two words, funnel-shifted by i +
+//   g CPL) and its two scores a row ahead, its (quality, base) two rows
+//   ahead. Loads from device memory in the row loop (the read code and
+//   quality a row, a window word every 32 rows) left rows waiting on them
+//   with one warp a scheduler.
+// - A warp's 8 groups run its longest slot's rows in step with full-mask
+//   shuffles (with a group's own mask the compiler tests the warp's
+//   convergence before each shuffle); a slot's rows past its own change
+//   its registers, not its maxima. Blocks of kQualThreads threads own 32
+//   slots; compact_block hands the valid ones to the groups in slot
+//   order, so that output positions stay fixed and invalid slots get -1
+//   in place.
+// - Cells stay int32: the tables may be signed (any int32), and two slots
+//   a thread in 16-bit halves, the main path's route, would halve the
+//   warps where the warps are what is missing and lengthen each thread's
+//   chain (8.5 instructions a column for two slots).
+// The route is G = cuda_align.qual_lanes(N, SMs, RL): 4 while the split
+// route's grid stays within three blocks an SM (N <= 96 SMs) and the
+// reads within 1,024 rows (its shared memory), else 1. A launch's time
+// steps with the blocks an SM; measured by scripts/qual_route_sweep.py
+// (device ms, NVIDIA H100 80GB HBM3 at 700 W, 132 SMs, 58% valid slots,
+// B = 16, RL = 160):
+//   N slots  G = 1   G = 4  rule
+//     2,048  0.0545  0.0249    4
+//     4,096  0.0547  0.0250    4
+//     8,192  0.0546  0.0376    4
+//    12,288  0.0554  0.0515    4
+//    12,672  0.0549  0.0515    4   (3 blocks an SM)
+//    12,800  0.0548  0.0545    1   (a 4th block on 4 SMs)
+//    16,384  0.0550  0.0656    1
+//    32,768  0.0930  0.1096    1
+// `vg map`'s 4,096 slots take G = 4, 2.2x faster than one slot a thread.
+// Splits of 2 and 8 lanes a slot won only at batches that no workload
+// sends (a -B the command line never sets), and are not built. Each
+// route's launches are counted (banded_dp_qual_launches).
 
 #include <atomic>
 #include <cstdint>
@@ -121,6 +184,9 @@ constexpr int kMaxPairThreads = 512;   // 16x2 kernel: two slots a thread
 constexpr int kMaskRows = 5;       // bases 0-3, and 4: the empty mask
 constexpr int kNeg16 = -16384;     // the 16x2 kernel's -inf
 constexpr int kMaxQualTab = 128;   // quality-table entries (cuda_align.py)
+constexpr int kQualThreads = 128;  // threads of a split-route block
+constexpr int kSplitLanes = 4;     // the split route's lanes a slot
+constexpr int kMaxSmem = 227 * 1024;   // shared memory a block can use
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Scoring {
@@ -521,6 +587,192 @@ banded_dp_qual_kernel(const TextSource<true> src,
   out[slot] = dp_slot<B, kSlots>(src, slot, RL, sc, qs, s_mask + t);
 }
 
+// Words of a slot's window the split route keeps: those of rows 0 .. RL -
+// 1 at lane offsets up to (G - 1) CPL, and the word past the last.
+__host__ __device__ constexpr int split_words(int RL, int G, int CPL) {
+  return ((RL - 1 + (G - 1) * CPL) >> 5) + 2;
+}
+
+// The quality entry's split route: a group of G = kSplitLanes lanes a
+// slot (see the note at the top). The block's kQualThreads threads own S = kQualThreads
+// / G slots; group q takes the block's q-th valid slot, lane g of it the
+// CPL band columns g CPL .. g CPL + CPL - 1 (columns past W are masked:
+// column W is pinned to the cell above the band after every row, columns
+// past it are left to run and kept out of the row maxima). A warp runs
+// its longest slot's rows, every lane in step.
+template <int B>
+__global__ void __launch_bounds__(kQualThreads)
+banded_dp_qual_split_kernel(const TextSource<true> src,
+                            const uint8_t* __restrict__ quals,
+                            const int32_t* __restrict__ mt,
+                            const int32_t* __restrict__ mm,
+                            const int32_t* __restrict__ bt, int nq,
+                            int32_t* __restrict__ out, long long N, int RL,
+                            const Scoring sc) {
+  constexpr int W = 2 * B + 1, G = kSplitLanes;
+  constexpr int CPL = (W + G - 1) / G;        // columns a lane
+  constexpr int S = kQualThreads / G;         // slots a block owns
+  constexpr int kLast = (W - 1) / CPL;        // lane of column W - 1,
+  constexpr int jLast = (W - 1) % CPL;        // and its position there
+  constexpr int kPin = W / CPL, jPin = W % CPL;   // column W
+  const int NW = split_words(RL, G, CPL);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // s_win[(b NW + w) S + q]: bit j set where window column 32 w + j of
+  // slot q holds base b; s_row[i S + q]: row i's quality (clipped to the
+  // tables) << 3 | its base (4 for N and the pad)
+  uint32_t* const s_win = reinterpret_cast<uint32_t*>(smem_raw);
+  uint16_t* const s_row =
+      reinterpret_cast<uint16_t*>(s_win + kMaskRows * NW * S);
+  // the tables, the hit and miss scores with the gap open added
+  __shared__ int32_t s_tab[3 * kMaxQualTab];
+  __shared__ int s_list[kQualThreads];
+  __shared__ int s_count[kQualThreads / 32];
+  const int o = sc.gap_open, e = sc.gap_extend;
+  for (int j = threadIdx.x; j < nq; j += blockDim.x) {
+    s_tab[j] = mt[j] + o;
+    s_tab[kMaxQualTab + j] = o + mm[j];
+    s_tab[2 * kMaxQualTab + j] = bt[j];
+  }
+  const long long n0 = (long long)blockIdx.x * S;
+  const long long nend = n0 + S < N ? n0 + S : N;
+  const int count = compact_block<1>(src, out, nend, n0, s_list, s_count);
+  const int t = threadIdx.x, q = t / G, g = t % G;
+  const bool live = q < count;
+  if (!__any_sync(kFull, live)) return;       // the warp leaves together
+  // a group past the count runs a live slot's inputs with no rows
+  const long long n = n0 + s_list[live ? q : 0];
+  const int32_t* const hit_tab = s_tab;
+  const int32_t* const miss_tab = s_tab + kMaxQualTab;
+  const QualScores qs{quals, nullptr, nullptr, s_tab + 2 * kMaxQualTab, RL,
+                      nq - 1, o};
+  typename TextSource<true>::Window win;
+  Slot s;
+  src.slot(n, win, s);
+  if (!live) s.rows = 0;
+  const auto rs = qs.of(s);
+  const int wrows = __reduce_max_sync(kFull, s.rows);
+  // the group's lanes build the slot's window words and its rows' inputs
+  // in turn, once
+  if (live) {
+    for (int w = g; w < NW; w += G) {
+      uint32_t m[4];
+      win.masks(w, m);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) s_win[(b * NW + w) * S + q] = m[b];
+      s_win[(4 * NW + w) * S + q] = 0u;
+    }
+  }
+#pragma unroll 4
+  for (int i = g; i < wrows; i += G) {
+    const int code = (int)s.rd[i];
+    s_row[i * S + q] =
+        (uint16_t)((rs.qual(i) << 3) | (code < 4 ? code : kMaskRows - 1));
+  }
+  __syncwarp();
+
+  const int c0 = g * CPL;
+  const int g0 = (s.rows > 0 ? rs.first() : 0) - o;
+  // Gc[CPL], Fc[CPL]: row i - 1's G and F at the next lane's first column
+  int Gc[CPL + 1], Fc[CPL + 1], carry[CPL], dec[G - 1];
+#pragma unroll
+  for (int k = 0; k < CPL; ++k) {
+    Gc[k] = c0 + k < W ? g0 : kNeg - o;
+    Fc[k] = kNeg;
+    carry[k] = -(o + k * e);                  // the carry's decay to column k
+  }
+  // lane h's E' total, decayed to this lane's first column (lanes < g)
+#pragma unroll
+  for (int h = 0; h < G - 1; ++h)
+    dec[h] = h < g ? -((g - 1 - h) * CPL * e) : kNeg;
+  const bool pin = g == kPin;
+
+  // Row i's match bits (bit k: window column i + c0 + k holds the row's
+  // base) and scores, from its staged (quality, base); staged a row ahead
+  // of their use, read two rows ahead.
+  const auto row_in = [&](int i, int rv, uint32_t& bits, int& hs, int& ms) {
+    const int p = i + c0;
+    const uint32_t* const w = s_win + ((rv & 7) * NW + (p >> 5)) * S + q;
+    bits = __funnelshift_r(w[0], w[S], p & 31);
+    hs = hit_tab[rv >> 3];
+    ms = miss_tab[rv >> 3];
+  };
+  uint32_t bits = 0u;
+  int hit_score = 0, miss_score = 0;
+  if (wrows > 0) row_in(0, s_row[q], bits, hit_score, miss_score);
+  int rv1 = wrows > 1 ? s_row[S + q] : 0;
+
+  int best_a = 0, best_b = 0;   // columns <= jLast, and past it
+  int last_a = kNeg, last_b = kNeg;
+#pragma unroll 1
+  for (int i = 0; i < wrows; ++i) {
+    Gc[CPL] = __shfl_down_sync(kFull, Gc[0], 1, G);
+    Fc[CPL] = __shfl_down_sync(kFull, Fc[0], 1, G);
+    // the lane's columns with E' from its own columns only
+    int ep = kNeg;
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+      const int f = __viaddmax_s32(Fc[k + 1], -e, Gc[k + 1]);
+      const int hn = __viaddmax_s32_relu(
+          Gc[k], ((bits >> k) & 1u) ? hit_score : miss_score, f);
+      const int x = hn - o;
+      Gc[k] = __viaddmax_s32(ep, -o, x);
+      ep = __viaddmax_s32(ep, -e, x);
+      Fc[k] = f;
+    }
+    uint32_t bits1;
+    int hit1, miss1;
+    row_in(i + 1, rv1, bits1, hit1, miss1);
+    rv1 = i + 2 < wrows ? s_row[(i + 2) * S + q] : 0;
+    // E' entering the lane: the totals of lanes 0 .. g - 1, decayed
+    int u[G - 1];
+#pragma unroll
+    for (int h = 0; h < G - 1; ++h)
+      u[h] = __shfl_sync(kFull, ep, h, G) + dec[h];
+    static_assert(G == 4, "the carry is the max of three lanes' totals");
+    const int cin = __vimax3_s32(u[0], u[1], u[2]);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k)
+      Gc[k] = __viaddmax_s32(cin, carry[k], Gc[k]);
+    if (pin) {              // column W: the cell above the band
+      Gc[jPin] = kNeg - o;
+      Fc[jPin] = kNeg;
+    }
+    // the row's maxima over the band's columns, while the slot has rows
+    const bool act = i < s.rows, lastrow = i == s.rows - 1;
+    int ra = Gc[0];
+#pragma unroll
+    for (int k = 1; k <= jLast; k += 2)
+      ra = k + 1 <= jLast ? __vimax3_s32(ra, Gc[k], Gc[k + 1])
+                          : max(ra, Gc[k]);
+    best_a = __viaddmax_s32(act ? ra : kNeg, o, best_a);
+    if (lastrow) last_a = ra;
+    if constexpr (jLast + 1 < CPL) {
+      int rbx = Gc[jLast + 1];
+#pragma unroll
+      for (int k = jLast + 2; k < CPL; k += 2)
+        rbx = k + 1 < CPL ? __vimax3_s32(rbx, Gc[k], Gc[k + 1])
+                          : max(rbx, Gc[k]);
+      best_b = __viaddmax_s32(act ? rbx : kNeg, o, best_b);
+      if (lastrow) last_b = rbx;
+    }
+    bits = bits1;
+    hit_score = hit1;
+    miss_score = miss1;
+  }
+  // reduced over the group once: lanes past kLast hold no band column
+  int best = g < kLast ? max(best_a, best_b) : g == kLast ? best_a : 0;
+  int last = g < kLast ? max(last_a, last_b) : g == kLast ? last_a : kNeg;
+#pragma unroll
+  for (int d = G / 2; d > 0; d >>= 1) {
+    best = max(best, __shfl_xor_sync(kFull, best, d, G));
+    last = max(last, __shfl_xor_sync(kFull, last, d, G));
+  }
+  if (live && g == 0) {
+    if (s.rows > 0 && s.rows == s.rl) best = max(best, last + o + rs.last());
+    out[n] = best;
+  }
+}
+
 // ---------------------------------------------------------------- 16x2
 
 __device__ __forceinline__ uint32_t pair16(int v) {
@@ -757,15 +1009,54 @@ TextSource<kPacked> text_source(const void* text, long long T,
   return src;
 }
 
+// Launches of the quality entry's routes: one slot a thread, and split.
+std::atomic<long long> g_qual_launches[2];
+
+// One launch of the split route. Its dynamic shared memory: each of the
+// block's S slots' window words (kMaskRows bases) and its rows' (quality,
+// base); above 48 KB with the opt-in, refused past the block's limit
+// (cuda_align.QUAL_SPLIT_MAX_RL keeps the wrapper below it).
+template <int B>
+cudaError_t launch_split(const TextSource<true>& src, const uint8_t* quals,
+                         const int32_t* mt, const int32_t* mm,
+                         const int32_t* bt, int nq, int32_t* out, long long N,
+                         int RL, const Scoring& sc, cudaStream_t stream) {
+  constexpr int W = 2 * B + 1, G = kSplitLanes, CPL = (W + G - 1) / G;
+  constexpr int S = kQualThreads / G;
+  const long long bytes = (long long)S * (kMaskRows * 4LL
+                                          * split_words(RL, G, CPL)
+                                          + 2LL * RL);
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        banded_dp_qual_split_kernel<B>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks = (unsigned)((N + S - 1) / S);
+  banded_dp_qual_split_kernel<B><<<blocks, kQualThreads, (size_t)bytes,
+                                   stream>>>(src, quals, mt, mm, bt, nq, out,
+                                             N, RL, sc);
+  return cudaGetLastError();
+}
+
 template <int B>
 cudaError_t launch_qual(const TextSource<true>& src, const uint8_t* quals,
                         const int32_t* mt, const int32_t* mm,
                         const int32_t* bt, int nq, int32_t* out, long long N,
-                        int RL, const Scoring& sc, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((N + kSlots - 1) / kSlots);
-  banded_dp_qual_kernel<B><<<blocks, kSlots, 0, stream>>>(
-      src, quals, mt, mm, bt, nq, out, N, RL, sc);
-  return cudaGetLastError();
+                        int RL, const Scoring& sc, int lanes,
+                        cudaStream_t stream) {
+  cudaError_t err;
+  if (lanes == 1) {
+    banded_dp_qual_kernel<B><<<(unsigned)((N + kSlots - 1) / kSlots), kSlots,
+                               0, stream>>>(src, quals, mt, mm, bt, nq, out,
+                                            N, RL, sc);
+    err = cudaGetLastError();
+  } else {
+    err = launch_split<B>(src, quals, mt, mm, bt, nq, out, N, RL, sc, stream);
+  }
+  if (err == cudaSuccess) g_qual_launches[lanes == 1 ? 0 : 1].fetch_add(1);
+  return err;
 }
 
 template <bool kPacked>
@@ -854,21 +1145,32 @@ extern "C" int banded_dp_windows(int device, const void* windows,
                      device, static_cast<cudaStream_t>(stream));
 }
 
+// Launches so far of the quality entry's route with `lanes` lanes a slot
+// (1: banded_dp_qual_kernel; kSplitLanes: banded_dp_qual_split_kernel),
+// -1 for another count.
+extern "C" long long banded_dp_qual_launches(int lanes) {
+  return lanes == 1 ? g_qual_launches[0].load()
+         : lanes == kSplitLanes ? g_qual_launches[1].load() : -1;
+}
+
 // banded_dp_qual_packed: the quality-adjusted DP on the packed words. As
 // banded_dp_packed, with quals (R, RL) uint8 phred in the reads' forward
 // orientation and match_tab, mism_tab, bonus_tab (nq,) int32 (1 <= nq <=
-// 128; the mismatch scores signed). Always the int32 kernel; counted by
-// the wrapper, not by banded_dp_launches.
+// 128; the mismatch scores signed), and the route: `lanes` = G lanes a
+// slot, 1 or kSplitLanes (ops/cuda_align.qual_lanes picks it from the
+// slot count, the SM count and RL). Always int32 cells; counted by route
+// (banded_dp_qual_launches), not by banded_dp_launches.
 extern "C" int banded_dp_qual_packed(
     int device, const void* text, long long T, const void* reads,
     const void* reads_rc, const void* quals, const void* rlen,
     const void* start, const void* lo, const void* hi, const void* rev,
     const void* valid, const void* match_tab, const void* mism_tab,
     const void* bonus_tab, int nq, void* out, int R, int C, int RL, int B,
-    int gap_open, int gap_extend, void* stream) {
+    int gap_open, int gap_extend, int lanes, void* stream) {
   const long long N = (long long)R * C;
   if (N == 0) return (int)cudaSuccess;
   if (nq < 1 || nq > kMaxQualTab) return (int)cudaErrorInvalidValue;
+  if (lanes != 1 && lanes != kSplitLanes) return (int)cudaErrorInvalidValue;
   const cudaError_t set = use_device(device);
   if (set != cudaSuccess) return (int)set;
   const auto src = text_source<true>(text, T, reads, reads_rc, rlen, start,
@@ -882,11 +1184,14 @@ extern "C" int banded_dp_qual_packed(
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch (B) {
-    case 8: err = launch_qual<8>(src, q, mt, mm, bt, nq, o, N, RL, sc, st);
+    case 8:
+      err = launch_qual<8>(src, q, mt, mm, bt, nq, o, N, RL, sc, lanes, st);
       break;
-    case 12: err = launch_qual<12>(src, q, mt, mm, bt, nq, o, N, RL, sc, st);
+    case 12:
+      err = launch_qual<12>(src, q, mt, mm, bt, nq, o, N, RL, sc, lanes, st);
       break;
-    case 16: err = launch_qual<16>(src, q, mt, mm, bt, nq, o, N, RL, sc, st);
+    case 16:
+      err = launch_qual<16>(src, q, mt, mm, bt, nq, o, N, RL, sc, lanes, st);
       break;
   }
   return (int)err;

@@ -18,9 +18,11 @@ instructions:
   windows; plain version `banded_scores_windows_ref` (ops/align.banded_dp
   on the TPU kernel's padded rows);
 - `banded_scores_qual_packed`: the quality-adjusted DP on the packed text,
-  an entry of the same kernel body with per-row scores from the phred
-  tables. It replaces no TPU kernel: vg_tpu runs it as an XLA scan
-  (vg_tpu.ops.align.banded_scores_qual). Plain version
+  int32 cells with per-row scores from the phred tables, on one of two
+  routes: the same kernel body, one slot a thread, or a slot's band split
+  over a group of 4 lanes (`qual_lanes` picks the route from the batch
+  and the card). It replaces no TPU kernel: vg_tpu runs it as an
+  XLA scan (vg_tpu.ops.align.banded_scores_qual). Plain version
   `banded_scores_qual_packed_ref`.
 
 Each launches the kernel for CUDA tensors and runs its plain version for
@@ -32,6 +34,7 @@ c_void_p).
 from __future__ import annotations
 
 import ctypes
+import logging
 import threading
 
 import numpy as np
@@ -49,18 +52,24 @@ RADII = (8, 12, 16)        # band radii the kernel is instantiated for
 # whose values fit int16, the main path's among them (the int32 route's
 # cell takes 7.5).
 OPS_PER_CELL = 4.25
-# The quality entry runs the int32 route: 7.5 instructions a cell, and a
-# row's scores from the tables: the oriented quality's index (2), its load
-# (1), the clip to the tables (1), two table reads (2) and the two sums
-# with the gap open (2).
+# The quality entry's work, the yardstick of its bound whatever its route
+# (csrc/banded_dp.cu): the int32 cell's 7.5 instructions, and a row's
+# scores from the tables: the oriented quality's index (2), its load (1),
+# the clip to the tables (1), two table reads (2) and the two sums with the
+# gap open (2).
 OPS_PER_CELL_INT32 = 7.5
 QUAL_OPS_PER_ROW = 8
 MAX_QUAL_TAB = 128         # entries of a quality table the kernel holds
+QUAL_LANES = (1, 4)        # the quality entry's routes: lanes a slot
+QUAL_SPLIT_SLOTS = 96      # qual_lanes: split-route slots an SM (3 blocks)
+QUAL_SPLIT_MAX_RL = 1024   # the split route's rows: its shared memory
 LANES = 128                # banded_scores_windows: N is a multiple of this
 
 _lib = None
 _lib_lock = threading.Lock()
 build_info: dict = {}      # path, seconds, ptxas report of the last build
+_sms: dict = {}            # SM count by CUDA device index
+_log = logging.getLogger(__name__)
 
 
 def pack_text(text: np.ndarray) -> np.ndarray:
@@ -102,10 +111,11 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
                        + [ctypes.c_void_p] * 12 + [ctypes.c_int]
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
-        lib.banded_dp_launches.restype = ctypes.c_longlong
-        lib.banded_dp_launches.argtypes = [ctypes.c_int]
+        for fn in (lib.banded_dp_launches, lib.banded_dp_qual_launches):
+            fn.restype = ctypes.c_longlong
+            fn.argtypes = [ctypes.c_int]
         lib.banded_dp_block_slots.restype = ctypes.c_int
         if lib.banded_dp_block_slots() != BLOCK_SLOTS:
             raise RuntimeError(
@@ -122,6 +132,31 @@ def launches_by_route() -> dict:
     (csrc/banded_dp.cu, fits16)."""
     lib = library()
     return {bits: int(lib.banded_dp_launches(bits)) for bits in (16, 32)}
+
+
+def qual_lanes(N: int, sms: int, RL: int) -> int:
+    """The quality entry's route for N slots of RL rows on a card of `sms`
+    SMs, as lanes a slot: 4 (banded_dp_qual_split_kernel, blocks of 32
+    slots) up to QUAL_SPLIT_SLOTS slots an SM and QUAL_SPLIT_MAX_RL rows,
+    else 1 (banded_dp_qual_kernel, one slot a thread). csrc/banded_dp.cu
+    gives the measurements behind it (scripts/qual_route_sweep.py)."""
+    return 4 if RL <= QUAL_SPLIT_MAX_RL and N <= QUAL_SPLIT_SLOTS * sms else 1
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once a device)."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
+
+
+def qual_launches_by_route() -> dict:
+    """Launches of the quality entry's routes so far, as the library
+    counts them: {G: launches} for G lanes a slot."""
+    lib = library()
+    return {G: int(lib.banded_dp_qual_launches(G)) for G in QUAL_LANES}
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -254,9 +289,12 @@ def banded_scores_qual_packed(
     has its torch counterpart). The tables are (Q+1,) int32 vectors
     indexed by phred (ops/qualadj.qual_tables), the mismatch signed.
     Returns (R, C) int32 scores, -1 on invalid slots. CUDA tensors launch
-    the kernel's int32 route with per-row scores (banded_dp_qual_packed,
-    counted in `banded_scores_qual_packed.launches`); CPU tensors run the
-    plain version `banded_scores_qual_packed_ref`."""
+    the kernel's quality entry, int32 cells with per-row scores
+    (banded_dp_qual_packed), on the route qual_lanes(R C, the card's SM
+    count, RL) gives; each launch counts in
+    `banded_scores_qual_packed.launches` and, by route, in its `routes`
+    dict. CPU tensors run the plain version
+    `banded_scores_qual_packed_ref`."""
     args = (reads, reads_rc, quals, rlen, cand_start, cand_lo, cand_hi,
             cand_rev, cand_valid, match_tab, mism_tab, bonus_tab)
     kw = dict(band_radius=band_radius, gap_open=gap_open,
@@ -294,6 +332,7 @@ def banded_scores_qual_packed(
     for name, t in (("match_tab", match_tab), ("mism_tab", mism_tab),
                     ("bonus_tab", bonus_tab)):
         _check(t, name, torch.int32, (nq,), dev)
+    lanes = qual_lanes(R * C, sm_count(dev), RL)
     out = torch.empty((R, C), dtype=torch.int32, device=dev)
     index, stream = cuda_build.launch_args(text_packed)
     err = library().banded_dp_qual_packed(
@@ -302,15 +341,19 @@ def banded_scores_qual_packed(
         cand_start.data_ptr(), cand_lo.data_ptr(), cand_hi.data_ptr(),
         cand_rev.data_ptr(), cand_valid.data_ptr(), match_tab.data_ptr(),
         mism_tab.data_ptr(), bonus_tab.data_ptr(), nq, out.data_ptr(), R, C,
-        RL, band_radius, gap_open, gap_extend, stream)
+        RL, band_radius, gap_open, gap_extend, lanes, stream)
     if err != 0:
         raise RuntimeError(f"banded_dp_qual_packed launch failed: CUDA error "
                            f"{err}")
+    _log.debug("banded_dp_qual_packed: %d slots, %d lanes a slot", R * C,
+               lanes)
     banded_scores_qual_packed.launches += 1
+    banded_scores_qual_packed.routes[lanes] += 1
     return out
 
 
 banded_scores_qual_packed.launches = 0
+banded_scores_qual_packed.routes = dict.fromkeys(QUAL_LANES, 0)
 
 
 def banded_scores_qual_packed_ref(
@@ -440,8 +483,9 @@ def dp_work(reads: torch.Tensor, rlen: torch.Tensor, cand_valid,
     `text_entries` int32 words / uint8 codes; each valid slot runs
     min(rlen, RL) rows. source "qual": the quality entry on packed words,
     which also reads the (R, RL) qualities and three tables of
-    `tab_entries` int32 values, and runs the int32 route:
-    OPS_PER_CELL_INT32 a cell and QUAL_OPS_PER_ROW a valid slot's row.
+    `tab_entries` int32 values, and counts int32 cells:
+    OPS_PER_CELL_INT32 a cell and QUAL_OPS_PER_ROW a valid slot's row,
+    whichever route runs them.
     source "windows": `reads` (N, RL) oriented, `text_entries` the
     windows' N * TW bytes, `cand_valid` None; each slot runs
     min(rlen, RLP) rows, RLP = RL rounded up to 8."""

@@ -13,6 +13,10 @@ one, every other one, and a random half.
 (banded_scores_qual_packed): phred 0-2 (the tables' zeros), 3-60, 61-93
 (past the tables' end), and quality strings shorter than the read;
 `signed_tables` gives tables whose mismatch scores take either sign.
+`split_case` names the cases of the quality entry's split route (a
+group of lanes a slot, each lane a run of band columns): row counts
+mixed within one warp, insertions and deletions that cross lane edges,
+signed tables, and phred past the end of short tables.
 """
 from __future__ import annotations
 
@@ -40,6 +44,24 @@ def block_valid(rng, R: int, C: int) -> np.ndarray:
         elif kind == "half":
             valid[s0 : s0 + n] = rng.random(n) < 0.5
     return valid.reshape(R, C)
+
+
+def _orient(r, rlen, strand, RL: int):
+    """(reads, reads_rc) of the cases from oriented reads r (R, L):
+    reverse-strand reads stored reverse-complemented, code 5 past rlen,
+    reads_rc the reverse complements of the first rlen codes (columns past
+    RL - 1 clipped to it)."""
+    R, L = r.shape
+    r = np.where(strand[:, None], COMP[r.astype(np.uint8)][:, ::-1], r)
+    col = np.arange(RL)[None, :]
+    reads = np.full((R, RL), 5, np.uint8)
+    reads[:, :L] = r
+    reads[col >= rlen[:, None]] = 5
+    idx = np.clip(rlen[:, None] - 1 - col, 0, RL - 1)
+    reads_rc = np.where(col < rlen[:, None],
+                        COMP[np.take_along_axis(reads, idx, 1)],
+                        5).astype(np.uint8)
+    return reads, reads_rc
 
 
 def block_case(rng, R: int = 160, C: int = 8, RL: int = 160, B: int = 16,
@@ -74,15 +96,7 @@ def block_case(rng, R: int = 160, C: int = 8, RL: int = 160, B: int = 16,
     rlen[short] = rng.integers(1, L, int(short.sum()))
     rlen[::23] = 0
     strand = rng.random(R) < 0.5
-    r = np.where(strand[:, None], COMP[r.astype(np.uint8)][:, ::-1], r)
-    col = np.arange(RL)[None, :]
-    reads = np.full((R, RL), 5, np.uint8)
-    reads[:, :L] = r
-    reads[col >= rlen[:, None]] = 5
-    idx = np.clip(rlen[:, None] - 1 - col, 0, RL - 1)
-    reads_rc = np.where(col < rlen[:, None],
-                        COMP[np.take_along_axis(reads, idx, 1)],
-                        5).astype(np.uint8)
+    reads, reads_rc = _orient(r, rlen, strand, RL)
     start = rng.integers(-TW, T, (R, C)).astype(np.int32)
     start[:, 0] = s - B + rng.integers(-3, 4, R)
     rev = rng.random((R, C)) < 0.5
@@ -151,3 +165,100 @@ def signed_tables(rng, nq: int = 61):
     return (rng.integers(0, 4, nq).astype(np.int32),
             rng.integers(-6, 3, nq).astype(np.int32),
             rng.integers(0, 8, nq).astype(np.int32))
+
+
+SPLIT_CASES = ("rows", "indel", "signed", "past_end")
+
+
+def qual_rows_case(rng, R: int = 64, C: int = 8, RL: int = 160, B: int = 16,
+                   T: int = 20_000):
+    """qual_case's tuple with every slot valid and the row counts a warp
+    of groups runs side by side: each run of 8 reads has rlen 0, 1, 2, a
+    random rl < RL, RL - 1, RL and RL + 7 (RL rows, no end bonus), and a
+    random rl; C candidates a read are C consecutive slots, so one warp's
+    groups (4 to 16 slots) mix them."""
+    text = rng.integers(0, 4, T).astype(np.uint8)
+    s = rng.integers(0, T - RL, R)
+    r = text[s[:, None] + np.arange(RL)]
+    mut = rng.random((R, RL)) < 0.02
+    r = np.where(mut, (r + 1 + rng.integers(0, 3, (R, RL))) % 4, r)
+    pattern = np.array([0, 1, 2, -1, RL - 1, RL, RL + 7, -1])
+    rlen = pattern[np.arange(R) % len(pattern)]
+    rnd = rlen < 0
+    rlen[rnd] = rng.integers(3, RL - 1, int(rnd.sum()))
+    rlen = rlen.astype(np.int32)
+    strand = rng.random(R) < 0.5
+    reads, reads_rc = _orient(r, rlen, strand, RL)
+    start = (s[:, None] - B + rng.integers(-B, B + 1, (R, C))).astype(
+        np.int32)
+    rev = np.repeat(strand[:, None], C, 1)
+    rev[:, 1::2] = ~rev[:, 1::2]
+    lo = np.zeros((R, C), np.int32)
+    hi = np.full((R, C), T, np.int32)
+    return (text, reads, reads_rc, read_quals(rng, rlen, RL), rlen, start,
+            lo, hi, rev, np.ones((R, C), bool))
+
+
+def qual_indel_case(rng, R: int = 64, C: int = 8, RL: int = 160,
+                    B: int = 16, T: int = 20_000, L: int = 150):
+    """qual_case's tuple with one insertion or deletion of 1 .. 2B bases in
+    the middle of each read, every slot valid, each candidate's window
+    started so that the path enters the band at a random column from which
+    the indel keeps it inside: the path moves across the band by the
+    indel's length, up to the whole band, so it crosses the lane edges of
+    every split (deletions through E' and the cross-lane carry, from the
+    first lane to the last; insertions through F and the neighbour's
+    column)."""
+    text = rng.integers(0, 4, T).astype(np.uint8)
+    L = min(L, RL)
+    s = rng.integers(2 * B, T - L - 4 * B, R)
+    r = np.empty((R, L), np.uint8)
+    d = rng.integers(1, 2 * B + 1, R)
+    for i in range(R):
+        q = int(rng.integers(L // 4, 3 * L // 4))
+        if i % 2:      # deletion: the read skips d text bases
+            src = np.concatenate([np.arange(q), np.arange(q + d[i], L + d[i])])
+            r[i] = text[s[i] + src]
+        else:          # insertion: d read bases the text lacks
+            r[i] = np.concatenate([text[s[i] : s[i] + q],
+                                   rng.integers(0, 4, d[i]),
+                                   text[s[i] + q : s[i] + L - d[i]]])
+    mut = rng.random((R, L)) < 0.01
+    r = np.where(mut, (r + 1 + rng.integers(0, 3, (R, L))) % 4, r)
+    rlen = np.full(R, L, np.int32)
+    strand = rng.random(R) < 0.5
+    reads, reads_rc = _orient(r, rlen, strand, RL)
+    # the path's band column before the indel: deletions move it up by d,
+    # insertions down
+    dele = (np.arange(R) % 2 == 1)[:, None]
+    u = rng.random((R, C))
+    k0 = np.where(dele, np.floor(u * (2 * B - d[:, None] + 1)),
+                  d[:, None] + np.floor(u * (2 * B - d[:, None] + 1)))
+    start = (s[:, None] - k0).astype(np.int32)
+    lo = np.zeros((R, C), np.int32)
+    hi = np.full((R, C), T, np.int32)
+    return (text, reads, reads_rc, read_quals(rng, rlen, RL), rlen, start,
+            lo, hi, np.repeat(strand[:, None], C, 1), np.ones((R, C), bool))
+
+
+def split_case(name: str, rng, B: int, R: int = 64, RL: int = 160):
+    """(qual_case-style tuple, (match, mismatch, bonus) tables) of a
+    SPLIT_CASES entry: "rows" (qual_rows_case with signed_tables, whose
+    positive mismatches raise the score of rows a slot does not have),
+    "indel"
+    (qual_indel_case), "signed" (qual_case with signed_tables), "past_end"
+    (qual_case with qualadj's tables cut to 8 entries: most phred lie
+    past their end)."""
+    from .qualadj import qual_tables
+
+    tabs = qual_tables(1, 4, 5)
+    if name == "rows":        # positive mismatch scores: a row run past
+        return qual_rows_case(rng, R=R, RL=RL, B=B), signed_tables(rng)
+    if name == "indel":
+        return qual_indel_case(rng, R=R, RL=RL, B=B), tabs
+    args = qual_case(rng, R=R, RL=RL, B=B, T=20_000)
+    if name == "signed":
+        return args, signed_tables(rng)
+    if name == "past_end":
+        return args, tuple(np.ascontiguousarray(t[:8]) for t in tabs)
+    raise ValueError(f"no split case {name!r}; SPLIT_CASES = {SPLIT_CASES}")
