@@ -34,14 +34,15 @@ kernels' launch counts set to 0 just before it and read just after:
 - long-read mapping, bench.py's long-read sidecar at its size: 512 reads
   of 10 kb (0.5% substitutions) on the same pangenome and minimizer
   index, LongReadMapper with engine="native" and then engine="device"
-  (the link engine, ops/device_links.py: the link_fill and link_walk
-  kernels, csrc/link_engine.cu); 16 reads warm the native engine, the
-  device engine warms on the 496 timed reads. The two engines' 496
-  records must be byte-identical, on the timed pass and on the pass under
-  the profiler, each with one launch of each link kernel a bucket. Then
-  the two link kernels against their plain versions on the card: both
-  buckets' inputs of the batch, ops/link_cases.py, and a bucket-768 batch
-  of 43,008 tasks;
+  (the link engine, ops/device_links.py: the link_pack, link_fill,
+  link_walk and link_runs kernels, csrc/link_engine.cu); 16 reads warm the
+  native engine, the device engine warms on the 496 timed reads. The two
+  engines' 496 records must be byte-identical, on the timed pass and on
+  the pass under the profiler, each with one launch of link_pack,
+  link_fill and link_walk a bucket and link_runs' two (count and write) a
+  bucket with a certified task. Then the four link kernels against their plain versions
+  on the card: both buckets' inputs of the batch, ops/link_cases.py (the
+  fill and walk), and a bucket-768 batch of 43,008 tasks;
 - `vg map -A` (MEMMapper, qual_adjusted=True): 150 bp reads with
   qualities from ReadSimulator, one warmup batch and 8 timed batches of
   512 through map_batch, the DP's quality entry (banded_dp_qual_packed) on
@@ -282,7 +283,9 @@ def kernel_wrappers() -> dict:
             "cluster_topc": cuda_seed.cluster_topc,
             "argsort_i32": cuda_seed.argsort_i32,
             "link_fill": cuda_links.link_fill,
-            "link_walk": cuda_links.link_walk}
+            "link_walk": cuda_links.link_walk,
+            "link_pack": cuda_links.link_pack,
+            "link_runs": cuda_links.link_runs}
 
 
 def reset_launches() -> None:
@@ -1764,11 +1767,13 @@ def longread_placed(lrm, recs, reads, starts) -> float:
 
 
 LINK_BIG_N = 43_008        # bucket-768 tasks past vg_tpu's int32 index
+LINK_KERNELS = ("link_pack", "link_fill", "link_walk", "link_runs")
 LINK_HOST_PASSES = (       # (module, function) the device engine calls
     ("vg_tpu_torch.map.longread", "LongReadMapper._device_batch"),
     ("vg_tpu_torch.native", "native_longread_chains"),
     ("vg_tpu_torch.native", "native_longread_collect_links"),
-    ("vg_tpu_torch.ops.device_links", "DeviceLinkAligner.align_runs_arrays"),
+    ("vg_tpu_torch.ops.device_links", "DeviceLinkAligner.align_runs_blob"),
+    ("vg_tpu_torch.ops.device_links", "splice_runs"),
     ("vg_tpu_torch.native", "native_global_align_batch"),
     ("vg_tpu_torch.native", "native_longread_stitch"),
     ("vg_tpu_torch.native", "native_emit_runs_gam"))
@@ -1791,11 +1796,16 @@ def timed_passes(acc):
 
 
 def link_args(arrs, text_packed, dev):
-    """link_fill's task tensors on `dev` from DeviceLinkAligner's numpy
-    arrays (a4 uint32 words; la, ta, base, lb int32)."""
+    """link_fill's task tensors on `dev` from numpy arrays in
+    DeviceLinkAligner's layout (a4 uint32 words; la, ta, base, lb int32)
+    or from the tensors it hands its engine."""
     a4, la, ta, ba, lb = arrs[:5]
-    put = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=dev)
-    return (put(a4.view(np.int32)), put(la), put(ta), put(ba), put(lb),
+    if isinstance(a4, np.ndarray):
+        a4 = a4.view(np.int32)
+    put = lambda x: torch.as_tensor(
+        np.ascontiguousarray(x) if isinstance(x, np.ndarray) else x,
+        device=dev)
+    return (put(a4), put(la), put(ta), put(ba), put(lb),
             text_packed.to(dev))
 
 
@@ -1812,22 +1822,58 @@ def check_links(args, kw) -> dict:
     got_w = cuda_links.link_walk(*walk_in)
     want_w = cuda_links.link_walk_ref(*walk_in)
     torch.cuda.synchronize()
+    res = dict(output_diff("link_fill", ("score", "bits"), got_f, want_f),
+               **output_diff("link_walk", ("packed", "n_steps", "complete"),
+                             got_w, want_w))
+    return dict(diff=res, bits=want_f[1], score=want_f[0], packed=want_w[0],
+                n_steps=want_w[1], complete=want_w[2])
+
+
+def output_diff(kernel, names, got, want) -> dict:
+    """{kernel.name: (differing entries, largest absolute difference)} of
+    a kernel's outputs against its plain version's (of the same shape)."""
     res = {}
-    for kernel, names, got, want in (
-            ("link_fill", ("score", "bits"), got_f, want_f),
-            ("link_walk", ("packed", "n_steps", "complete"), got_w, want_w)):
-        for name, g, w in zip(names, got, want):
-            g64, w64 = g.to(torch.int64), w.to(torch.int64)
-            res[f"{kernel}.{name}"] = (int((g64 != w64).sum()),
-                                       int((g64 - w64).abs().max())
-                                       if g.numel() else 0)
-    return dict(diff=res, bits=want_f[1], n_steps=want_w[1])
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape, (kernel, name, g.shape, w.shape)
+        g64, w64 = g.to(torch.int64), w.to(torch.int64)
+        res[f"{kernel}.{name}"] = (int((g64 != w64).sum()),
+                                   int((g64 - w64).abs().max())
+                                   if g.numel() else 0)
+    return res
+
+
+def capture_link_passes(store):
+    """Context: the arguments of each bucket's first link_pack (by RMAX)
+    and link_runs call (by its words a task) in store[name]."""
+    from vg_tpu_torch.ops import cuda_links
+
+    wrappers = {name: getattr(cuda_links, name) for name in store}
+
+    def capturing(name):
+        def call(*a, **kw):
+            key = kw["RMAX"] if name == "link_pack" else a[0].shape[1]
+            store[name].setdefault(key, (a, kw))
+            return wrappers[name](*a, **kw)
+        call.launches = 0              # the wrapper counts itself here
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        for name in store:
+            setattr(cuda_links, name, capturing(name))
+        try:
+            yield store
+        finally:
+            for name, fn in wrappers.items():
+                setattr(cuda_links, name, fn)
+    return ctx()
+
 
 
 def link_mismatches(diff, kernel) -> tuple:
     """(differing entries, max abs difference) of one kernel's outputs."""
     rows = [v for k, v in diff.items() if k.startswith(kernel + ".")]
-    return sum(r[0] for r in rows), max(r[1] for r in rows)
+    return sum(r[0] for r in rows), max((r[1] for r in rows), default=0)
 
 
 def walk_tile_bytes(la, RMAX, WB) -> int:
@@ -1841,15 +1887,17 @@ def phase_longread(haps, idx, card, seed, parent=None):
     """Long-read mapping at bench.py's sidecar size with each engine; the
     device engine's 496 records byte-identical to the native engine's,
     placement >= 95%, the link kernels' launches on the timed batch
-    (counts reset just before it), its fill / walk / fetch and host passes'
-    seconds, a profiled batch (kernels, idle share); then link_fill and
-    link_walk against their plain versions on the card, with 0 differing
-    entries, on both buckets' captured inputs, on ops/link_cases.py and on
-    a bucket-768 batch of LINK_BIG_N tasks, and their device times; with
-    `parent` (a checkout), the parent's link kernels against these on both
-    buckets' inputs."""
+    (counts reset just before it), its pack / fill / walk / runs / fetch
+    and host passes' seconds, a profiled batch (kernels, idle share); then
+    link_pack, link_fill, link_walk and link_runs against their plain
+    versions on the card, with 0 differing entries, on both buckets'
+    captured inputs and on a bucket-768 batch of LINK_BIG_N tasks (the
+    fill and walk also on ops/link_cases.py), and their device times;
+    with `parent` (a checkout), the parent's link_fill and link_walk
+    against these on both buckets' inputs."""
     from vg_tpu_torch.map.longread import LongReadMapper, LongReadParams
-    from vg_tpu_torch.ops import cuda_links, link_cases
+    from vg_tpu_torch.ops import cuda_links, device_links, link_cases
+    from vg_tpu_torch.ops import pass_cases
     from vg_tpu_torch.ops.cuda_align import pack_text
 
     t_phase = time.time()
@@ -1864,17 +1912,21 @@ def phase_longread(haps, idx, card, seed, parent=None):
     dv = LongReadMapper(haps, idx, LongReadParams(engine="device"))
     dla = dv._device_aligner()
     captured = {}
+    passes_in = {"link_pack": {}, "link_runs": {}}
     engine = dla._engine
 
-    def capture(*a):                      # the warm pass's engine inputs
-        captured.setdefault(a[-1], a)
-        return engine(*a)
+    def capture(*a, **kw):                # the warm pass's engine inputs
+        captured.setdefault(a[5], a[:6])
+        return engine(*a, **kw)
 
     dla._engine = capture
-    t0 = time.time()
-    dv.map_batch_encoded(timed)           # warm at the full batch
-    dt_warm = time.time() - t0
-    dla._engine = engine
+    try:
+        with capture_link_passes(passes_in):
+            t0 = time.time()
+            dv.map_batch_encoded(timed)   # warm at the full batch
+            dt_warm = time.time() - t0
+    finally:
+        dla._engine = engine
     dla.stats = {}
     passes = {}
     reset_launches()
@@ -1894,24 +1946,25 @@ def phase_longread(haps, idx, card, seed, parent=None):
         f"{n_timed / dt_d:.1f} reads/s (warm pass {dt_warm:.3f} s); "
         f"{n_diff} of {n_timed} records differ; {100 * frac:.2f}% placed "
         f"within 1000 bp on {card}")
+    device_passes = ("pack", "fill", "walk", "runs", "fetch")
     log(f"long-read slow links: {st.get('tasks', 0)} tasks, {on_card} "
         f"resolved on the card, {st.get('tasks', 0) - on_card} on the host; "
-        f"per bucket {json.dumps(buckets)}; link engine fill "
-        f"{st.get('fill', 0):.4f} s, walk {st.get('walk', 0):.4f} s, fetch "
-        f"{st.get('fetch', 0):.4f} s; launches on the timed batch: "
-        f"link_fill {launches['link_fill']}, link_walk "
-        f"{launches['link_walk']}")
-    engine_s = sum(st.get(k, 0.0) for k in ("fill", "walk", "fetch"))
+        f"per bucket {json.dumps(buckets)}; link engine "
+        + ", ".join(f"{k} {st.get(k, 0):.4f} s" for k in device_passes)
+        + "; launches on the timed batch: " + ", ".join(
+            f"{k} {launches[k]}" for k in LINK_KERNELS))
+    engine_s = sum(st.get(k, 0.0) for k in device_passes)
     host = {name: box[0] for name, box in passes.items()}
     two_pass = host.pop("_device_batch")
-    host["align_runs_arrays"] -= engine_s    # its numpy, without the engine
+    host["align_runs_blob"] -= engine_s      # its own host work
     inner = sum(v for k, v in host.items() if k != "native_emit_runs_gam")
+    rest = two_pass - inner - engine_s
     log(f"long-read device engine, where the {dt_d:.3f} s go: "
         + ", ".join(f"{k} {v:.4f} s" for k, v in host.items())
-        + f", link engine (fill + walk + fetch) {engine_s:.4f} s; the rest "
-        f"of _device_batch (oriented slices, run splice, per-chain dicts) "
-        f"{two_pass - inner - engine_s:.4f} s; map_batch_encoded's own "
-        f"Python (encoding, reverse complements, winners, MAPQ, refpos) "
+        + f", link engine ({' + '.join(device_passes)}) {engine_s:.4f} s; "
+        f"the rest of _device_batch (task table, forward blob, fallback "
+        f"slices, per-chain dicts) {rest:.4f} s; map_batch_encoded's own "
+        f"Python (encoding, winners, MAPQ, refpos) "
         f"{dt_d - two_pass - host['native_emit_runs_gam']:.4f} s")
     # the profiled pass: its own launches (counts reset) and records
     reset_launches()
@@ -1925,7 +1978,8 @@ def phase_longread(haps, idx, card, seed, parent=None):
     busy = sum(us for _, us in events) / 1e3
     ours = {}
     for name, us in events:
-        for k in ("link_fill_kernel", "link_walk_kernel"):
+        for k in ("link_pack_kernel", "link_fill_kernel", "link_walk_kernel",
+                  "link_runs_kernel"):
             if k in name:
                 n, ms = ours.get(k, (0, 0.0))
                 ours[k] = (n + 1, ms + us / 1e3)
@@ -1934,9 +1988,9 @@ def phase_longread(haps, idx, card, seed, parent=None):
         f"{wall:.3f} s wall, device busy {busy:.2f} ms (idle "
         f"{100 - 100 * busy / (1e3 * wall):.2f}%); "
         + ", ".join(f"{k} {n}x {ms:.3f} ms" for k, (n, ms) in ours.items())
-        + f"; launches counted in the pass: link_fill "
-        f"{launches_p['link_fill']}, link_walk {launches_p['link_walk']}; "
-        f"{n_diff_p} of {len(recs_p)} records differ from the native "
+        + "; launches counted in the pass: " + ", ".join(
+            f"{k} {launches_p[k]}" for k in LINK_KERNELS)
+        + f"; {n_diff_p} of {len(recs_p)} records differ from the native "
         f"engine's")
 
     # each kernel against its plain version on the card
@@ -1972,6 +2026,38 @@ def phase_longread(haps, idx, card, seed, parent=None):
                 f"{int((args[1] > 0).sum())} tasks): {timing_text(t)}"
                 f"{tiles} on {card}")
         del chk, walk_in, args
+    # the passes around the engine, on the same batch's buckets
+    for RMAX in sorted(passes_in["link_pack"]):
+        a, kw = passes_in["link_pack"][RMAX]
+        diffs[f"bucket {RMAX}"].update(output_diff(
+            "link_pack", ("a4",), (cuda_links.link_pack(*a, **kw),),
+            (cuda_links.link_pack_ref(*a, **kw),)))
+        timed_k.setdefault("link_pack", {})[RMAX] = dict(
+            timed_turns(lambda: cuda_links.link_pack(*a, **kw),
+                        lambda: cuda_links.link_pack_ref(*a, **kw), 50, 3),
+            shape=f"N = {kw['N']}, RMAX = {RMAX}, {a[2].shape[0]} tasks",
+            **bound(*cuda_links.pack_work(a[2], a[1], kw["N"], RMAX)))
+    for RMAX in sorted(captured):
+        a = passes_in["link_runs"][cuda_links.walk_steps(RMAX, WB) // 8][0]
+        got = cuda_links.link_runs(*a)
+        diffs[f"bucket {RMAX}"].update(output_diff(
+            "link_runs", ("runs", "counts"), got,
+            cuda_links.link_runs_ref(*a)))
+        m = got[0].shape[0]
+        # the count pass, the scan and the write pass, without the
+        # wrapper's one synchronisation (m is known)
+        kern = lambda: cuda_links._write_runs(
+            *a, torch.cumsum(cuda_links._count_runs(*a), 0), m)
+        timed_k.setdefault("link_runs", {})[RMAX] = dict(
+            timed_turns(kern, lambda: cuda_links.link_runs_ref(*a), 50, 3),
+            shape=f"N = {a[0].shape[0]}, SW = {a[0].shape[1]}, "
+                  f"{int(a[2].sum())} certified, {m} runs",
+            **bound(*cuda_links.runs_work(a[1], a[2], m)))
+        del got
+    for name in ("link_pack", "link_runs"):
+        for RMAX, t in sorted(timed_k[name].items()):
+            log(f"{name}, bucket {RMAX} ({t['shape']}): {timing_text(t)} "
+                f"on {card}")
     if parent:
         compare_parent_links(parent, captured, dla.text_packed, kw0, card)
     for name in link_cases.CASES:
@@ -1991,15 +2077,36 @@ def phase_longread(haps, idx, card, seed, parent=None):
     big = link_args(arrs, torch.as_tensor(pack_text(text)), "cuda")
     kw = dict(kw0, RMAX=768, T=len(text))
     assert (LINK_BIG_N - 1) * 769 * WB >= 2**31, "the batch fits int32"
-    diffs[f"bucket 768, {LINK_BIG_N} tasks"] = check_links(big, kw)["diff"]
+    chk = check_links(big, kw)
+    big_diff = diffs[f"bucket 768, {LINK_BIG_N} tasks"] = chk["diff"]
     ms_big = cuda_ms(lambda: cuda_links.link_fill(*big, **kw), 3)
     bits_big = cuda_links.link_fill(*big, **kw)[1]
     ms_big_w = cuda_ms(lambda: cuda_links.link_walk(
         bits_big, big[1], big[3], big[4]), 3)
+    del bits_big
+    # link_runs on that batch's walk, link_pack on as many tasks
+    runs_in = (chk["packed"], chk["n_steps"], device_links.certified(
+        chk["score"], chk["complete"], big[1], big[4], sc, dla.B))
+    del chk
+    big_diff.update(output_diff("link_runs", ("runs", "counts"),
+                                cuda_links.link_runs(*runs_in),
+                                cuda_links.link_runs_ref(*runs_in)))
+    ms_big_r = cuda_ms(lambda: cuda_links.link_runs(*runs_in), 3)
+    blob, read_off, tasks = (torch.as_tensor(x, device="cuda")
+                             for x in pass_cases.big_tasks(seed))
+    pkw = dict(N=LINK_BIG_N, RMAX=768)
+    big_diff.update(output_diff(
+        "link_pack", ("a4",), (cuda_links.link_pack(blob, read_off, tasks,
+                                                    **pkw),),
+        (cuda_links.link_pack_ref(blob, read_off, tasks, **pkw),)))
+    ms_big_p = cuda_ms(lambda: cuda_links.link_pack(blob, read_off, tasks,
+                                                    **pkw), 3)
     log(f"link kernels on {LINK_BIG_N} bucket-768 tasks (flat indices to "
         f"{LINK_BIG_N * 769 * WB - 1}): link_fill {ms_big:.4f} ms, "
-        f"link_walk {ms_big_w:.4f} ms (enqueue-inclusive) on {card}")
-    del big, bits_big
+        f"link_walk {ms_big_w:.4f} ms, link_runs {ms_big_r:.4f} ms "
+        f"({int(runs_in[2].sum())} certified), link_pack {ms_big_p:.4f} ms "
+        f"(enqueue-inclusive) on {card}")
+    del big, runs_in, blob, read_off, tasks
     torch.cuda.empty_cache()
     bad = {}
     for where, d in diffs.items():
@@ -2015,15 +2122,20 @@ def phase_longread(haps, idx, card, seed, parent=None):
     assert frac >= 0.95, frac
     assert on_card > 0, "the device engine resolved no link on the card"
     assert set(captured) == {256, 768}, sorted(captured)
-    for name in ("link_fill", "link_walk"):
-        assert launches[name] == len(buckets), \
+    assert set(passes_in["link_pack"]) == {256, 768}, passes_in["link_pack"]
+    # link_runs' count and write passes run on a bucket with a certified
+    # task
+    with_cert = sum(1 for b in buckets.values() if b["certified"])
+    for name in LINK_KERNELS:
+        want = 2 * with_cert if name == "link_runs" else len(buckets)
+        assert launches[name] == want, \
             f"{name} launched {launches[name]} times on the timed batch"
-        assert launches_p[name] == len(buckets), \
+        assert launches_p[name] == want, \
             f"{name} launched {launches_p[name]} times in the profiled pass"
     assert len(recs_p) == n_timed and n_diff_p == 0, \
         f"the profiled pass: {n_diff_p} records differ"
     kernels = {}
-    for name in ("link_fill", "link_walk"):
+    for name in LINK_KERNELS:
         mism = [link_mismatches(d, name) for d in diffs.values()]
         kernels[name] = dict(timed_k[name][256],
                              mismatches=sum(m[0] for m in mism),
@@ -2818,6 +2930,13 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "link_walk": ("vg_tpu_torch/csrc/link_engine.cu",
                   "vg_tpu/ops/device_links.py:186-221 the link engine's "
                   "walk (lax.scan over steps, XLA; no Pallas kernel)"),
+    "link_pack": ("vg_tpu_torch/csrc/link_engine.cu",
+                  "vg_tpu/ops/device_links.py:300-307 and "
+                  "vg_tpu/map/longread.py:656-676 the oriented slices "
+                  "packed into a4 (numpy on the host; no Pallas kernel)"),
+    "link_runs": ("vg_tpu_torch/csrc/link_engine.cu",
+                  "vg_tpu/ops/device_links.py:333-377 the step codes "
+                  "turned into runs (numpy on the host; no Pallas kernel)"),
 }
 
 

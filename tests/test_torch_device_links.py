@@ -1,9 +1,11 @@
 """The long-read link engine (vg_tpu_torch/ops/device_links.py: the fill
-and walk kernels of ops/cuda_links.py, csrc/link_engine.cu) and the
-chain-DP twin (ops/device_chain.py) against the port's own host code; the
-cases of ops/link_cases.py against the traps they are built for; and, on
-the card, each kernel against its plain version, the wrappers' checks and
-launch counts, and the link engine against the same function on the CPU.
+and walk kernels of ops/cuda_links.py, csrc/link_engine.cu, and the pack
+and runs passes around them) and the chain-DP twin (ops/device_chain.py)
+against the port's own host code; the cases of ops/link_cases.py and
+ops/pass_cases.py against the traps they are built for; and, on the card,
+each kernel against its plain version, the wrappers' checks and launch
+counts, and the link engine and DeviceLinkAligner against the same
+function on the CPU.
 Imports no JAX, so the `gpu` tests also run on a machine that has only the
 card's stack:
 
@@ -22,6 +24,7 @@ from vg_tpu_torch.ops import cuda_links
 from vg_tpu_torch.ops import device_chain
 from vg_tpu_torch.ops import device_links
 from vg_tpu_torch.ops import link_cases
+from vg_tpu_torch.ops import pass_cases
 from vg_tpu_torch.ops.align import DEFAULT_SCORING
 from vg_tpu_torch.ops.link_cases import synthetic_links
 
@@ -369,3 +372,194 @@ def test_link_engine_launches_each_kernel_once(cuda_device):
             cuda_links.link_walk.launches) == n1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# --------------------------------------------- the pack and runs passes
+
+def pack_inputs(name, dev, RMAX=768):
+    """(blob, read_off, tasks, N) for link_pack at RMAX: a pass_cases
+    batch's tasks up to la RMAX, or big_tasks for "big"."""
+    if name == "big":
+        blob, read_off, tasks = pass_cases.big_tasks()
+    else:
+        b = pass_cases.read_batch(name)
+        sel = np.nonzero(b["la"] <= RMAX)[0]
+        blob, read_off = b["blob"], b["read_off"]
+        tasks = np.stack([b["task_read"], b["task_rev"], b["ra"], b["la"]],
+                         axis=1)[sel].astype(np.int32)
+    N = max(1024, 1 << int(np.ceil(np.log2(max(len(tasks), 1)))))
+    put = lambda x: torch.as_tensor(x, device=dev)
+    return put(blob), put(read_off), put(tasks), N
+
+
+def runs_inputs(name, dev):
+    packed, n_steps, cert = pass_cases.step_case(name)
+    return tuple(torch.as_tensor(x, device=dev)
+                 for x in (packed, n_steps, cert))
+
+
+def test_pack_ref_gives_the_oriented_slices():
+    """link_pack_ref's words hold each task's oriented slice (the read's
+    bases, or its reverse complement's, from ra on) up to la and 0 after
+    it, and padding tasks are 0: held against dna.revcomp_codes task by
+    task."""
+    from vg_tpu_torch.utils import dna
+
+    b = pass_cases.read_batch("mixed")
+    RMAX = 768
+    blob, read_off, tasks, N = pack_inputs("mixed", "cpu", RMAX)
+    a4 = cuda_links.link_pack_ref(blob, read_off, tasks, N=N, RMAX=RMAX)
+    words = a4.numpy().view(np.uint32)
+    for k, (r, rev, ra, la) in enumerate(tasks.numpy()):
+        read = b["reads"][r]
+        s = (dna.revcomp_codes(read) if rev else read)[ra : ra + la]
+        got = unpack_a(words, k, RMAX)
+        np.testing.assert_array_equal(got[:la], s)
+        assert not got[la:].any()
+    assert not words[len(tasks):].any()
+
+
+def test_runs_ref_expands_to_the_steps():
+    """link_runs_ref's runs, expanded, are each certified task's ops in
+    forward order, and neighbouring runs of a task differ."""
+    packed, n_steps, cert = runs_inputs("random", "cpu")
+    runs, counts = cuda_links.link_runs_ref(packed, n_steps, cert)
+    ops = op_codes(packed)
+    r = runs.numpy()
+    off = np.concatenate([[0], np.cumsum(counts.numpy())])
+    for t in range(len(n_steps)):
+        seg = r[off[t] : off[t + 1]]
+        if not cert[t]:
+            assert len(seg) == 0
+            continue
+        ns = int(n_steps[t])
+        np.testing.assert_array_equal(np.repeat(seg[:, 0], seg[:, 1]),
+                                      ops[t, :ns][::-1])
+        assert (seg[1:, 0] != seg[:-1, 0]).all() and not seg[:, 2].any()
+
+
+def test_pass_wrappers_on_cpu_run_the_plain_versions():
+    """CPU tensors go through link_pack_ref / link_runs_ref and count no
+    launch."""
+    n0 = (cuda_links.link_pack.launches, cuda_links.link_runs.launches)
+    blob, read_off, tasks, N = pack_inputs("mixed", "cpu", 256)
+    RMAX = 256
+    assert torch.equal(
+        cuda_links.link_pack(blob, read_off, tasks, N=N, RMAX=RMAX),
+        cuda_links.link_pack_ref(blob, read_off, tasks, N=N, RMAX=RMAX))
+    args = runs_inputs("random", "cpu")
+    for g, w in zip(cuda_links.link_runs(*args),
+                    cuda_links.link_runs_ref(*args)):
+        assert torch.equal(g, w)
+    assert (cuda_links.link_pack.launches,
+            cuda_links.link_runs.launches) == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,RMAX", [
+    ("mixed", 256), ("mixed", 768), ("no_certified_bucket", 768),
+    ("empty", 768), ("big", 768)])
+def test_pack_kernel_equals_plain(cuda_device, name, RMAX):
+    """link_pack on the card against link_pack_ref on the same inputs:
+    every word, at bucket 256 and 768 and at 43,008 bucket-768 tasks."""
+    blob, read_off, tasks, N = pack_inputs(name, cuda_device, RMAX)
+    n0 = cuda_links.link_pack.launches
+    got = cuda_links.link_pack(blob, read_off, tasks, N=N, RMAX=RMAX)
+    want = cuda_links.link_pack_ref(blob, read_off, tasks, N=N, RMAX=RMAX)
+    torch.cuda.synchronize()
+    assert cuda_links.link_pack.launches == n0 + 1
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", pass_cases.STEP_CASES)
+def test_runs_kernel_equals_plain(cuda_device, name):
+    """link_runs on the card against link_runs_ref on the same step codes:
+    every run and count, at 1,100 bucket-256 tasks and at 43,008
+    bucket-768 tasks; the count pass launches, and the write pass where
+    there is a run to write."""
+    args = runs_inputs(name, cuda_device)
+    n0 = cuda_links.link_runs.launches
+    got = cuda_links.link_runs(*args)
+    want = cuda_links.link_runs_ref(*args)
+    torch.cuda.synchronize()
+    assert cuda_links.link_runs.launches == n0 + 1 + (len(want[0]) > 0)
+    for what, g, w in zip(("runs", "counts"), got, want):
+        assert g.shape == w.shape and torch.equal(g, w), what
+
+
+@pytest.mark.gpu
+def test_pass_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
+    """Wrong dtype, shape, layout or device: ValueError before any
+    launch."""
+    RMAX = 768
+    blob, read_off, tasks, N = pack_inputs("mixed", cuda_device, RMAX)
+    n0 = (cuda_links.link_pack.launches, cuda_links.link_runs.launches)
+    bad_pack = [
+        ((blob.to(torch.int32), read_off, tasks), {}),
+        ((blob, read_off.to(torch.int32), tasks), {}),
+        ((blob, read_off[:0], tasks), {}),
+        ((blob, read_off, tasks.to(torch.int64)), {}),
+        ((blob, read_off, tasks[:, :3].contiguous()), {}),
+        ((blob, read_off, tasks.t().contiguous().t()), {}),
+        ((blob, read_off.cpu(), tasks), {}),
+        ((blob, read_off, tasks), {"RMAX": 260}),
+        ((blob, read_off, tasks), {"N": len(tasks) - 1}),
+    ]
+    for a, extra in bad_pack:
+        with pytest.raises(ValueError):
+            cuda_links.link_pack(*a, **dict(dict(N=N, RMAX=RMAX), **extra))
+    packed, n_steps, cert = runs_inputs("random", cuda_device)
+    bad_runs = [
+        (packed.to(torch.int64), n_steps, cert),
+        (packed[:, :0], n_steps, cert),
+        (packed.reshape(-1), n_steps, cert),
+        (packed, n_steps[:-1], cert),
+        (packed, n_steps.to(torch.int64), cert),
+        (packed, n_steps, cert.to(torch.uint8)),
+        (packed, n_steps, cert.cpu()),
+        (packed.t().contiguous().t(), n_steps, cert),
+    ]
+    for a in bad_runs:
+        with pytest.raises(ValueError):
+            cuda_links.link_runs(*a)
+    assert (cuda_links.link_pack.launches,
+            cuda_links.link_runs.launches) == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mixed", "no_certified_bucket",
+                                  "all_fall_back"])
+def test_aligner_on_card_equals_cpu(cuda_device, name):
+    """DeviceLinkAligner.align_runs_blob on the card against the same call
+    on the CPU: one link_pack, link_fill and link_walk a bucket with tasks,
+    link_runs' count and write passes a bucket with a certified task
+    (neither for a bucket that certifies nothing)."""
+    b = pass_cases.read_batch(name)
+    tp = cuda_align.pack_text(b["text"])
+    out = {}
+    counts = {}
+    for dev in ("cpu", cuda_device):
+        dla = device_links.DeviceLinkAligner(
+            torch.as_tensor(tp, device=dev), len(b["text"]), DEFAULT_SCORING)
+        dla.stats = {}
+        n0 = {k: getattr(cuda_links, k).launches for k in
+              ("link_pack", "link_fill", "link_walk", "link_runs")}
+        res = dla.align_runs_blob(
+            torch.as_tensor(b["blob"], device=dev), b["read_off"],
+            b["task_read"], b["task_rev"], b["ra"], b["la"], b["ta"],
+            b["lb"])
+        out[str(dev)] = res[:3] + (device_links.splice_runs(
+            res[2], res[3])[1],)
+        counts[str(dev)] = {k: getattr(cuda_links, k).launches - v
+                            for k, v in n0.items()}
+        buckets = dla.stats.get("buckets", {})
+    for g, w in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_array_equal(g, w)
+    assert set(counts["cpu"].values()) == {0}
+    with_tasks = len(buckets)
+    certified = sum(1 for v in buckets.values() if v["certified"])
+    assert counts["cuda"] == dict(link_pack=with_tasks, link_fill=with_tasks,
+                                  link_walk=with_tasks, link_runs=2 * certified)
+    assert {"mixed": (2, 2), "no_certified_bucket": (2, 1),
+            "all_fall_back": (0, 0)}[name] == (with_tasks, certified)

@@ -30,6 +30,7 @@ from vg_tpu.utils import dna
 from vg_tpu_torch.convert import state_from_arrays
 from vg_tpu_torch.io.fastq import Read as TorchRead
 from vg_tpu_torch.map import chain as t_chain
+from vg_tpu_torch.map import longread as t_longread
 from vg_tpu_torch.map.longread import LongReadMapper as TorchLongRead
 from vg_tpu_torch.map.longread import LongReadParams as TorchParams
 from vg_tpu_torch.ops import cuda_align
@@ -38,6 +39,7 @@ from vg_tpu_torch.ops import device_chain as t_dchain
 from vg_tpu_torch.ops import device_links as t_links
 from vg_tpu_torch.ops import global_align as t_global
 from vg_tpu_torch.ops import link_cases
+from vg_tpu_torch.ops import pass_cases
 from vg_tpu_torch.ops.align import DEFAULT_SCORING
 from vg_tpu_torch.ops.link_cases import synthetic_links
 
@@ -108,27 +110,38 @@ def as_reads(seqs, cls):
 @pytest.fixture(scope="module")
 def device_tasks(long_setup):
     """The port's device engine on the 24 reads (device="cpu"): its
-    records, the slow-link tasks handed to align_runs_arrays and each
+    records, the slow-link tasks handed to align_runs_blob as vg_tpu's
+    device engine hands them to align_runs_arrays (oriented_rows) and each
     bucket's padded engine inputs."""
     _, _, t_haps, t_idx = long_setup
     m = TorchLongRead(t_haps, t_idx, TorchParams(engine="device"),
                       device="cpu")
     dla = m._device_aligner()
     seen = {"runs": [], "engine": {}}
-    runs_fn, engine_fn = dla.align_runs_arrays, dla._engine
+    runs_fn, engine_fn = dla.align_runs_blob, dla._engine
 
     def runs(*a):
         seen["runs"].append(a)
         return runs_fn(*a)
 
-    def engine(*a):
-        seen["engine"][a[-1]] = a
-        return engine_fn(*a)
+    def engine(*a, **kw):
+        seen["engine"][a[5]] = (a[0].numpy().view(np.uint32),) + tuple(
+            x.numpy() for x in a[1:5]) + (a[5],)
+        return engine_fn(*a, **kw)
 
-    dla.align_runs_arrays, dla._engine = runs, engine
+    dla.align_runs_blob, dla._engine = runs, engine
     recs = m.map_batch_encoded(as_reads(link_reads(t_haps), TorchRead))
     assert len(seen["runs"]) == 1 and set(seen["engine"]) == {256, 768}
-    return recs, seen["runs"][0], seen["engine"]
+    return recs, oriented_rows(*seen["runs"][0], max(dla.buckets)), \
+        seen["engine"]
+
+
+def oriented_rows(blob, read_off, task_read, task_rev, ra, la, ta, lb,
+                  cap):
+    """(a_rows, la, ta, lb) as vg_tpu's LongReadMapper._device_batch
+    builds them for align_runs_arrays (ops/pass_cases.oriented_rows)."""
+    return pass_cases.oriented_rows(blob.numpy(), read_off, task_read,
+                                    task_rev, ra, la, cap), la, ta, lb
 
 
 def edits_key(res):
@@ -398,6 +411,42 @@ def test_mapper_keeps_its_packed_text(long_setup):
     np.testing.assert_array_equal(tp.numpy(),
                                   cuda_align.pack_text(t_haps.text))
     assert not hasattr(t_haps, "_text_packed_dev")
+
+
+@pytest.mark.parametrize("engine", ["device", "native"])
+def test_reverse_complements_only_where_read(long_setup, monkeypatch,
+                                             engine):
+    """map_batch_encoded makes a read's reverse complement only for a
+    reverse link task that falls back to the host DP (none on the native
+    engine), of that task's read."""
+    _, _, t_haps, t_idx = long_setup
+    m = TorchLongRead(t_haps, t_idx, TorchParams(engine=engine),
+                      device="cpu")
+    made = []
+    revcomp = t_longread.dna.revcomp_codes
+
+    def counted(c):
+        made.append(c)
+        return revcomp(c)
+
+    monkeypatch.setattr(t_longread.dna, "revcomp_codes", counted)
+    fallback = []
+    if engine == "device":
+        dla = m._device_aligner()
+        runs_fn = dla.align_runs_blob
+
+        def runs(*a):
+            out = runs_fn(*a)
+            fallback.append(int((a[3] & ~out[0]).sum()))
+            return out
+
+        dla.align_runs_blob = runs
+    reads = as_reads(link_reads(t_haps), TorchRead)
+    assert m.map_batch_encoded(reads) is not None
+    assert len(made) == sum(fallback)
+    codes = [dna.encode(r.sequence) for r in reads]
+    for c in made:
+        assert any(np.array_equal(c, f) for f in codes)
 
 
 def test_device_chain_equals_jax():

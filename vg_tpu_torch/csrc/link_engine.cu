@@ -1,4 +1,5 @@
-// The long-read link engine's fill and walk (sm_90a).
+// The long-read link engine (sm_90a): the fill and the walk, and the passes
+// that feed and drain them (link_pack, link_runs).
 //
 // Replaces no TPU kernel: vg_tpu runs the link engine as two lax.scans
 // compiled into one XLA program (vg_tpu/ops/device_links.py, the fill
@@ -111,6 +112,34 @@
 // may leave its task (row -1 reads the previous task's last row, which
 // another block writes), and the seam is where the plain versions are
 // compared.
+//
+// The two passes around the engine. vg_tpu runs them in numpy on the host
+// (vg_tpu/ops/device_links.py:300-307 packs the read slices, :333-377
+// turns the walk's step codes into runs; vg_tpu/map/longread.py:656-676
+// gathers the oriented slices from a forward + reverse-complement blob).
+// Here they run on the card, so that only scores, the certified mask, run
+// counts and the runs come back (cuda_links.link_pack_ref and
+// link_runs_ref are their plain versions).
+//
+// link_pack_kernel — a thread per output word of a4 (8 bases). What bounds
+// it: bytes, the slices read and the words written (about 2 MB a bucket of
+// the long-read cell: under a microsecond at 3.35 TB/s). Design: each
+// thread reads its task's row of the table and its 8 bases straight from
+// the forward codes, the reverse strand as complements read backwards, so
+// the host neither builds a reverse-complement blob nor gathers slices;
+// neighbouring threads take neighbouring words of a task.
+//
+// link_runs_kernel<kWrite> — a warp per task, 32 steps an iteration. What
+// bounds it: bytes (each certified task's packed codes read, its runs
+// written: some 1.5 MB a bucket). A step s < n_steps starts a run of the
+// stored (last-first) order where its op differs from step s - 1's and
+// ends one where it differs from step s + 1's; __ballot_sync gathers both
+// flags of the warp's 32 steps. The count pass sums the starts. The write
+// pass gives the run that ends at step s its index r in stored order (the
+// ends before it) and its start (the highest start at or below s, or the
+// one carried from an earlier iteration), and writes it to slot
+// ends[t] - 1 - r: the forward order, at the offset of the inclusive scan
+// of the counts. A run never crosses tasks: each warp sees one task.
 
 #include <climits>
 #include <cstdint>
@@ -605,6 +634,102 @@ link_walk_kernel(const uint8_t* __restrict__ bits,
   }
 }
 
+constexpr int kPackThreads = 256;
+constexpr int kRunsWarps = 8;        // tasks a runs block
+constexpr unsigned kNoOp = 16u;      // no step: differs from every op
+
+// a4[t, w]: the 4-bit codes of oriented bases 8w .. 8w + 7 of task t
+// (tasks[t] = read, reverse, ra, la): base p is 0 from la on and where its
+// forward position (ra + p, or len - 1 - (ra + p) on the reverse strand)
+// lies outside the read; a reverse base is the complement (3 - c for
+// c < 4). Tasks n .. N - 1 are 0.
+__global__ void __launch_bounds__(kPackThreads)
+link_pack_kernel(const uint8_t* __restrict__ blob,
+                 const long long* __restrict__ read_off, int R,
+                 const int32_t* __restrict__ tasks, int n, int N, int RW,
+                 uint32_t* __restrict__ a4) {
+  const long long idx = (long long)blockIdx.x * kPackThreads + threadIdx.x;
+  if (idx >= (long long)N * RW) return;
+  const long long t = idx / RW;
+  const int w = (int)(idx - t * RW);
+  uint32_t word = 0;
+  const int r = t < n ? tasks[4 * t] : -1;
+  if (r >= 0 && r < R) {
+    const bool rev = tasks[4 * t + 1] != 0;
+    const long long ra = tasks[4 * t + 2];
+    const int la = tasks[4 * t + 3];
+    const long long off = read_off[r];
+    const long long len = read_off[r + 1] - off;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int p = 8 * w + j;
+      const long long f = rev ? len - 1 - (ra + p) : ra + p;
+      if (p < la && f >= 0 && f < len) {
+        unsigned c = blob[off + f];
+        if (rev && c < 4) c = 3 - c;
+        word |= c << (4 * j);
+      }
+    }
+  }
+  a4[idx] = word;
+}
+
+// Step s's op: nibble s % 8 of word s / 8 of the task's row.
+__device__ __forceinline__ unsigned step_op(const uint32_t* row, int s) {
+  return (row[s >> 3] >> ((s & 7) * 4)) & 15u;
+}
+
+// kWrite false: counts[t] = the runs of certified task t (0 otherwise).
+// kWrite true: task t's runs (op, length, 0) in forward order at rows
+// ends[t] - counts[t] .. ends[t] - 1 of runs.
+template <bool kWrite>
+__global__ void __launch_bounds__(kRunsWarps * 32)
+link_runs_kernel(const uint32_t* __restrict__ packed,
+                 const int32_t* __restrict__ n_steps,
+                 const bool* __restrict__ cert, int N, int SW,
+                 long long* __restrict__ counts,
+                 const long long* __restrict__ ends,
+                 int32_t* __restrict__ runs) {
+  const long long t = (long long)blockIdx.x * kRunsWarps + (threadIdx.x >> 5);
+  if (t >= N) return;                  // the whole warp: one task
+  const int lane = threadIdx.x & 31;
+  const int ns = cert[t] ? clampi(n_steps[t], 0, 8 * SW) : 0;
+  const uint32_t* const row = packed + t * SW;
+  const long long last = kWrite ? ends[t] - 1 : 0;
+  long long found = 0;                 // runs started (count) or ended (write)
+  int open = 0;                        // start of the run open at s0
+  unsigned before = kNoOp;             // op of step s0 - 1
+  for (int s0 = 0; s0 < ns; s0 += 32) {
+    const int s = s0 + lane;
+    const bool in = s < ns;
+    const unsigned op = in ? step_op(row, s) : kNoOp;
+    unsigned prev = __shfl_up_sync(kFull, op, 1);
+    if (lane == 0) prev = before;
+    before = __shfl_sync(kFull, op, 31);
+    const unsigned starts = __ballot_sync(kFull, in && op != prev);
+    if (!kWrite) {
+      found += __popc(starts);
+      continue;
+    }
+    unsigned next = __shfl_down_sync(kFull, op, 1);
+    if (lane == 31) next = s + 1 < ns ? step_op(row, s + 1) : kNoOp;
+    const bool is_end = in && op != next;
+    const unsigned end_mask = __ballot_sync(kFull, is_end);
+    if (is_end) {
+      const unsigned at_or_below = starts & (kFull >> (31 - lane));
+      const int start = at_or_below ? s0 + 31 - __clz(at_or_below) : open;
+      const long long r = found + __popc(end_mask & ((1u << lane) - 1u));
+      int32_t* const out = runs + 3 * (last - r);
+      out[0] = (int32_t)op;
+      out[1] = s - start + 1;
+      out[2] = 0;
+    }
+    if (starts) open = s0 + 31 - __clz(starts);
+    found += __popc(end_mask);
+  }
+  if (!kWrite && lane == 0) counts[t] = found;
+}
+
 cudaError_t use_device(int device) {
   int cur = -1;
   const cudaError_t e = cudaGetDevice(&cur);
@@ -716,5 +841,64 @@ extern "C" int link_walk(int device, const void* bits, const void* la,
       static_cast<const int32_t*>(base), static_cast<const int32_t*>(lb), N,
       RMAX, WB, STEPS, static_cast<uint32_t*>(packed),
       static_cast<int32_t*>(n_steps), static_cast<bool*>(complete));
+  return (int)cudaGetLastError();
+}
+
+// link_pack: blob (nb,) uint8 forward read codes; read_off (R + 1,) int64
+// (read r is blob[read_off[r] .. read_off[r + 1])); tasks (n, 4) int32
+// (read, reverse, ra, la); a4 (N, RW) uint32, n <= N.
+extern "C" int link_pack(int device, const void* blob, const void* read_off,
+                         int R, const void* tasks, int n, int N, int RW,
+                         void* a4, void* stream) {
+  if (R < 0 || n < 0 || N < n || RW < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
+  const cudaError_t set = use_device(device);
+  if (set != cudaSuccess) return (int)set;
+  const long long words = (long long)N * RW;
+  const dim3 grid((unsigned)((words + kPackThreads - 1) / kPackThreads));
+  link_pack_kernel<<<grid, kPackThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(blob),
+      static_cast<const long long*>(read_off), R,
+      static_cast<const int32_t*>(tasks), n, N, RW,
+      static_cast<uint32_t*>(a4));
+  return (int)cudaGetLastError();
+}
+
+// link_runs_count / link_runs_write: packed (N, SW) uint32 op words from
+// link_walk; n_steps (N,) int32; cert (N,) bool; counts (N,) int64 (the
+// count pass writes it); ends (N,) int64, the inclusive scan of counts,
+// and runs (ends[N - 1], 3) int32 (the write pass reads and writes them).
+extern "C" int link_runs_count(int device, const void* packed,
+                               const void* n_steps, const void* cert, int N,
+                               int SW, void* counts, void* stream) {
+  if (N < 0 || SW < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
+  const cudaError_t set = use_device(device);
+  if (set != cudaSuccess) return (int)set;
+  const dim3 grid((unsigned)((N + kRunsWarps - 1) / kRunsWarps));
+  link_runs_kernel<false><<<grid, kRunsWarps * 32, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed),
+      static_cast<const int32_t*>(n_steps), static_cast<const bool*>(cert),
+      N, SW, static_cast<long long*>(counts), nullptr, nullptr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int link_runs_write(int device, const void* packed,
+                               const void* n_steps, const void* cert,
+                               const void* ends, int N, int SW, void* runs,
+                               void* stream) {
+  if (N < 0 || SW < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
+  const cudaError_t set = use_device(device);
+  if (set != cudaSuccess) return (int)set;
+  const dim3 grid((unsigned)((N + kRunsWarps - 1) / kRunsWarps));
+  link_runs_kernel<true><<<grid, kRunsWarps * 32, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed),
+      static_cast<const int32_t*>(n_steps), static_cast<const bool*>(cert),
+      N, SW, nullptr, static_cast<const long long*>(ends),
+      static_cast<int32_t*>(runs));
   return (int)cudaGetLastError();
 }

@@ -573,8 +573,8 @@ class LongReadMapper:
     def _native_batch(self, reads: Sequence[Read]):
         """ONE fused native call (minimizer anchors -> chain DP -> greedy
         chains -> stitch, OpenMP across reads). Returns (codes_list,
-        rc_list, per_read) where per_read[ri] is a list of dicts per
-        stitched chain, or None when the native lib is absent.
+        per_read) where per_read[ri] is a list of dicts per stitched
+        chain, or None when the native lib is absent.
 
         engine="device" routes every slow-link DP through the device link
         engine between the native chain and stitch passes — the
@@ -589,14 +589,12 @@ class LongReadMapper:
         if p.engine == "device":
             dv = self._device_batch(codes_list)
             if dv is not None:
-                rc_list = [dna.revcomp_codes(c) for c in codes_list]
-                return codes_list, rc_list, dv
+                return codes_list, dv
         st = native_longread_map_batch(
             codes_list, self.index, p, p.chain, self.haps.text,
             self.haps.text_start, self.scoring)
         if st is None:
             return None
-        rc_list = [dna.revcomp_codes(c) for c in codes_list]
         n_out, rev, score, matches, rs, re_, t0, t1, runs, runs_off = st
         C = p.chain.max_chains
         per_read: List[List[dict]] = [[] for _ in reads]
@@ -609,7 +607,7 @@ class LongReadMapper:
                     read_start=int(rs[si]), read_end=int(re_[si]),
                     t0=int(t0[si]), t1=int(t1[si]),
                     runs=runs[int(runs_off[si]) : int(runs_off[si + 1])]))
-        return codes_list, rc_list, per_read
+        return codes_list, per_read
 
     def _device_aligner(self):
         la = getattr(self, "_dla", None)
@@ -635,10 +633,13 @@ class LongReadMapper:
         native lib is absent."""
         from types import SimpleNamespace
 
+        import torch
+
         from ..native import (native_global_align_batch,
                               native_longread_chains,
                               native_longread_collect_links,
                               native_longread_stitch)
+        from ..ops.device_links import splice_runs
 
         p = self.params
         ch = native_longread_chains(codes_list, self.index, p, p.chain)
@@ -654,76 +655,40 @@ class LongReadMapper:
         chain_task_off, tasks = cl
         nt = len(tasks)
         dla = self._device_aligner()
-        # oriented read slices per task, fully vectorized: one flat
-        # blob of forward + reverse-complement codes, per-task base
-        # offsets, one fancy gather into the padded (nt, LAMAX) matrix
-        if nt:
-            read_off = np.zeros(len(codes_list) + 1, np.int64)
-            np.cumsum([len(c) for c in codes_list], out=read_off[1:])
-            fwd_blob = np.concatenate(codes_list)
-            rc_blob = np.concatenate(
-                [dna.revcomp_codes(c) for c in codes_list])
-            nb = len(fwd_blob)
-            task_ci = np.searchsorted(chain_task_off[1:], np.arange(nt),
-                                      side="right")
-            task_ri = np.asarray(chain_read)[task_ci].astype(np.int64)
-            task_rev = np.asarray(chain_rev)[task_ci].astype(bool)
-            ra = tasks[:, 0]
-            la = tasks[:, 1]
-            ta = tasks[:, 2]
-            lb = tasks[:, 3]
-            base = read_off[task_ri] + ra + np.where(task_rev, nb, 0)
-            LAMAX = int(min(max(dla.buckets), max(int(la.max()), 1)))
-            blob = np.concatenate([fwd_blob, rc_blob])
-            idx = base[:, None] + np.arange(LAMAX, dtype=np.int64)[None]
-            a_rows = blob[np.clip(idx, 0, len(blob) - 1)]
-            a_rows[np.arange(LAMAX)[None] >= la[:, None]] = 0
-            dres, dscores, druns, dcounts = dla.align_runs_arrays(
-                a_rows, la, ta, lb)
-        else:
-            la = ta = lb = np.zeros(0, np.int64)
-            dres = np.zeros(0, bool)
-            dscores = np.zeros(0, np.int64)
-            druns = np.zeros((0, 3), np.int32)
-            dcounts = np.zeros(0, np.int64)
+        # the task table (read, strand, ra, la, ta, lb) and the forward
+        # codes, uploaded once: the aligner orients and packs the slices
+        # on the device
+        task_ci = np.searchsorted(chain_task_off[1:], np.arange(nt),
+                                  side="right")
+        task_ri = np.asarray(chain_read, np.int64)[task_ci]
+        task_rev = np.asarray(chain_rev)[task_ci].astype(bool)
+        ra, la, ta, lb = (np.asarray(tasks[:, k], np.int64)
+                          for k in range(4))
+        read_off = np.zeros(len(codes_list) + 1, np.int64)
+        np.cumsum([len(c) for c in codes_list], out=read_off[1:])
+        blob = torch.as_tensor(
+            np.concatenate(codes_list) if nt else np.zeros(0, np.uint8),
+            device=dla.device)
+        dres, scores, counts, pieces = dla.align_runs_blob(
+            blob, read_off, task_ri, task_rev, ra, la, ta, lb)
         # host fallback for band-ineligible / uncertified tasks
-        scores = dscores.copy()
         ok = dres.astype(np.uint8)
-        counts = dcounts.copy()
         fb_idx = np.nonzero(~dres)[0]
-        fb_res = None
         if len(fb_idx):
-            fb_res = native_global_align_batch(
-                [blob[int(base[t]) : int(base[t]) + int(la[t])]
-                 for t in fb_idx],
+            read = lambda t: codes_list[int(task_ri[t])]
+            fsc, fok, fruns, foff = native_global_align_batch(
+                [(dna.revcomp_codes(read(t)) if task_rev[t] else read(t))
+                 [int(ra[t]) : int(ra[t]) + int(la[t])] for t in fb_idx],
                 [text[int(ta[t]) : int(ta[t]) + int(lb[t])]
                  for t in fb_idx],
                 self.scoring)
-            fsc, fok, fruns, foff = fb_res
             scores[fb_idx] = fsc
             ok[fb_idx] = fok.astype(np.uint8)
             counts[fb_idx] = np.where(
                 fok, np.diff(foff.astype(np.int64)), 0)
-        # splice device and fallback runs into global task order
-        # (vectorized variable-length segment scatter)
-        runs_off = np.zeros(nt + 1, np.int64)
-        np.cumsum(counts, out=runs_off[1:])
-        all_runs = np.zeros((int(runs_off[-1]), 3), np.int32)
-
-        def _scatter(task_ids, src):
-            seg = counts[task_ids]
-            tot = int(seg.sum())
-            if tot == 0:
-                return
-            within = (np.arange(tot)
-                      - np.repeat(np.concatenate([[0], np.cumsum(seg)])
-                                  [:-1], seg))
-            dest = np.repeat(runs_off[task_ids], seg) + within
-            all_runs[dest] = src[:tot]
-
-        _scatter(np.nonzero(dres)[0], druns)
-        if len(fb_idx):
-            _scatter(fb_idx[fok.astype(bool)], fruns)
+            pieces.append((fb_idx[fok.astype(bool)], fruns))
+        # device and fallback runs into global task order, one splice
+        runs_off, all_runs = splice_runs(counts, pieces)
         st = native_longread_stitch(
             codes_list, chain_read, chain_rev, roffs, tposs, anc_off,
             self.index.k, text, self.haps.text_start, self.scoring, p,
@@ -751,7 +716,8 @@ class LongReadMapper:
         nb = self._native_batch(reads)
         if nb is None:
             return [self.map_read(r) for r in reads]
-        codes_list, rc_list, per_read = nb
+        codes_list, per_read = nb
+        rc_list = [dna.revcomp_codes(c) for c in codes_list]
         out: List[Alignment] = []
         for ri, read in enumerate(reads):
             results = []
@@ -805,7 +771,7 @@ class LongReadMapper:
         nb = self._native_batch(reads)
         if nb is None or native_lib() is None:
             return None
-        codes_list, rc_list, per_read = nb
+        per_read = nb[1]
         p = self.params
         winners = []                      # (read idx, dict, mapq)
         records: List[object] = [None] * len(reads)

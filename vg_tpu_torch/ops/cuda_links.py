@@ -1,5 +1,5 @@
-"""The long-read link engine's fill and walk: CUDA kernels and their plain
-versions.
+"""The long-read link engine's fill and walk, and the passes that feed and
+drain them: CUDA kernels and their plain versions.
 
 The counterpart of the two lax.scans of vg_tpu/ops/device_links.py (the
 fill, :110-166, and the walk, :186-221), which XLA compiles into one
@@ -8,7 +8,12 @@ for sm_90a) replace them: `link_fill` (eight lanes a task, each holding
 consecutive band columns in registers) and `link_walk` (four lanes a
 task, stepping through tiles of the task's bits in shared memory); the
 source note says what bounds each and why it is built as it is.
-ops/device_links.link_engine runs the two in turn.
+ops/device_links.link_engine runs the two in turn. Around them,
+`link_pack` gathers and packs each task's oriented read slice from the
+batch's forward codes on the card, and `link_runs` turns the walk's step
+codes into forward-merged runs (a count pass, a scan, a write pass): the
+counterparts of vg_tpu's numpy host passes (vg_tpu/ops/device_links.py:
+300-307 and :333-377, vg_tpu/map/longread.py:656-676).
 
 Each wrapper launches its kernel for CUDA tensors (counted in
 `<wrapper>.launches`) and runs its plain PyTorch version (`<wrapper>_ref`)
@@ -82,6 +87,12 @@ def library() -> ctypes.CDLL:
                                   + [_P] * 3)
         lib.link_walk.restype = _I
         lib.link_walk.argtypes = [_I] + [_P] * 4 + [_I] * 4 + [_P] * 4
+        lib.link_pack.restype = _I
+        lib.link_pack.argtypes = [_I, _P, _P, _I, _P, _I, _I, _I, _P, _P]
+        lib.link_runs_count.restype = _I
+        lib.link_runs_count.argtypes = [_I] + [_P] * 3 + [_I] * 2 + [_P] * 2
+        lib.link_runs_write.restype = _I
+        lib.link_runs_write.argtypes = [_I] + [_P] * 4 + [_I] * 2 + [_P] * 2
         _lib = lib
         return _lib
 
@@ -385,3 +396,224 @@ def walk_work(n_steps: torch.Tensor, N: int, RMAX: int, WB: int) -> tuple:
     taken = int(n_steps.to(torch.int64).sum())
     nbytes = 3 * 4 * N + taken + 4 * SW * N + 4 * N + N
     return nbytes, WALK_OPS_PER_STEP * (taken + N)
+
+
+# ---------------------------------------------------------------- pack
+
+# int64 operations of link_pack_ref a base (element by element): the
+# forward position 4, its tests 6, the index 2, the load 1, the complement
+# 4, the mask 1, the nibble's shift and sum 2
+PACK_OPS_PER_BASE = 20
+
+
+def _check_pack(blob, read_off, tasks, N, RMAX) -> None:
+    dev = blob.device
+    if RMAX % 8 or RMAX < 8:
+        raise ValueError(f"link_pack: RMAX must be a positive multiple of "
+                         f"8, not {RMAX}")
+    if blob.dim() != 1 or read_off.dim() != 1 or read_off.shape[0] < 1:
+        raise ValueError("link_pack: blob and read_off must be 1-D, "
+                         "read_off not empty")
+    if tasks.dim() != 2 or not 0 <= tasks.shape[0] <= N:
+        raise ValueError(f"link_pack: tasks must be (n, 4) with n <= N = "
+                         f"{N}, not {tuple(tasks.shape)}")
+    _check(blob, "link_pack: blob", torch.uint8, blob.shape, dev)
+    _check(read_off, "link_pack: read_off", torch.int64, read_off.shape, dev)
+    _check(tasks, "link_pack: tasks", torch.int32, (tasks.shape[0], 4), dev)
+
+
+def link_pack(blob, read_off, tasks, *, N: int, RMAX: int):
+    """The (N, RMAX/8) int32 read words (uint32 bits, 8 nibbles a word:
+    base p in nibble p % 8 of word p // 8) of n <= N link tasks, gathered
+    from a batch's reads: blob (nb,) uint8 forward read codes (0-4),
+    read_off (R + 1,) int64 (read r is blob[read_off[r] ..
+    read_off[r + 1]), inside the blob), tasks (n, 4) int32 rows (read,
+    reverse, ra, la). Base p of task t is base ra + p of the read, or on
+    the reverse strand of its reverse complement (the complement, by
+    dna._COMP, of forward base len - 1 - (ra + p)); it is 0 from la on and
+    where that forward base lies outside the read, and tasks n .. N - 1
+    are 0. CUDA tensors launch the kernel (counted in `link_pack.launches`);
+    CPU tensors run link_pack_ref."""
+    if not _cuda_or_cpu(blob, "link_pack"):
+        return link_pack_ref(blob, read_off, tasks, N=N, RMAX=RMAX)
+    _check_pack(blob, read_off, tasks, N, RMAX)
+    dev = blob.device
+    n = tasks.shape[0]
+    a4 = torch.empty((N, RMAX // 8), dtype=torch.int32, device=dev)
+    if N == 0:
+        return a4
+    index, stream = cuda_build.launch_args(blob)
+    err = library().link_pack(
+        index, blob.data_ptr(), read_off.data_ptr(), read_off.shape[0] - 1,
+        tasks.data_ptr(), n, N, RMAX // 8, a4.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"link_pack launch failed: CUDA error {err}")
+    link_pack.launches += 1
+    return a4
+
+
+link_pack.launches = 0
+
+
+def link_pack_ref(blob, read_off, tasks, *, N: int, RMAX: int):
+    """Plain PyTorch version of link_pack: one gather of the (n, RMAX)
+    oriented bases, masked, then summed into words."""
+    dev = blob.device
+    n = tasks.shape[0]
+    R = read_off.shape[0] - 1
+    t = tasks.to(torch.int64)
+    r, rev, ra, la = t[:, 0:1], t[:, 1:2] != 0, t[:, 2:3], t[:, 3:4]
+    rr = r.clamp(0, max(R - 1, 0))
+    off = read_off[rr]
+    length = read_off[(rr + 1).clamp(max=R)] - off
+    p = torch.arange(RMAX, device=dev)
+    q = ra + p
+    f = torch.where(rev, length - 1 - q, q)
+    ok = (r >= 0) & (r < R) & (p < la) & (f >= 0) & (f < length)
+    nb = blob.shape[0]
+    code = (blob[(off + f).clamp(0, max(nb - 1, 0))].to(torch.int64) if nb
+            else torch.zeros((n, RMAX), dtype=torch.int64, device=dev))
+    code = torch.where(rev & (code < 4), 3 - code, code)
+    code = torch.where(ok, code, 0)
+    sh4 = torch.arange(8, device=dev) * 4
+    words = (code.reshape(n, RMAX // 8, 8) << sh4).sum(dim=2)
+    a4 = torch.zeros((N, RMAX // 8), dtype=torch.int32, device=dev)
+    a4[:n] = torch.where(words >= 2 ** 31, words - 2 ** 32,
+                         words).to(torch.int32)
+    return a4
+
+
+def pack_work(tasks: torch.Tensor, read_off: torch.Tensor, N: int,
+              RMAX: int) -> tuple:
+    """(bytes, operations) one link_pack call needs on these inputs: each
+    task's row of the table and the reads' offsets read once, the
+    min(la, RMAX) bases of each task's slice read once, the words written
+    once; PACK_OPS_PER_BASE for each base of a slice."""
+    bases = int(tasks[:, 3].to(torch.int64).clamp(0, RMAX).sum())
+    nbytes = (16 * tasks.shape[0] + 8 * read_off.shape[0] + bases
+              + 4 * N * (RMAX // 8))
+    return nbytes, PACK_OPS_PER_BASE * bases
+
+
+# ---------------------------------------------------------------- runs
+
+# int64 operations of link_runs_ref a step (element by element): the
+# nibble 2, the reversed index 3, the gather 1, the mask 1, the two
+# boundary tests and their or 3, the start's place 1, its run's op and
+# length 1
+RUNS_OPS_PER_STEP = 12
+
+
+def _check_runs(packed, n_steps, cert) -> tuple:
+    dev = packed.device
+    if packed.dim() != 2 or packed.shape[1] < 1:
+        raise ValueError(f"link_runs: packed must be (N, SW), SW >= 1, not "
+                         f"{tuple(packed.shape)}")
+    N, SW = packed.shape
+    _check(packed, "link_runs: packed", torch.int32, (N, SW), dev)
+    _check(n_steps, "link_runs: n_steps", torch.int32, (N,), dev)
+    _check(cert, "link_runs: cert", torch.bool, (N,), dev)
+    return N, SW
+
+
+def _count_runs(packed, n_steps, cert):
+    """link_runs' count pass on the card: (N,) int64 runs a task."""
+    N, SW = _check_runs(packed, n_steps, cert)
+    counts = torch.empty(N, dtype=torch.int64, device=packed.device)
+    index, stream = cuda_build.launch_args(packed)
+    err = library().link_runs_count(
+        index, packed.data_ptr(), n_steps.data_ptr(), cert.data_ptr(), N, SW,
+        counts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"link_runs count launch failed: CUDA error {err}")
+    link_runs.launches += 1
+    return counts
+
+
+def _write_runs(packed, n_steps, cert, ends, total: int):
+    """link_runs' write pass on the card: the (total, 3) int32 runs, task
+    t's at rows ends[t] - counts[t] .. ends[t] - 1 (ends (N,) int64, the
+    inclusive scan of the count pass, total = ends[N - 1])."""
+    N, SW = _check_runs(packed, n_steps, cert)
+    _check(ends, "link_runs: ends", torch.int64, (N,), packed.device)
+    runs = torch.empty((total, 3), dtype=torch.int32, device=packed.device)
+    if total == 0:
+        return runs
+    index, stream = cuda_build.launch_args(packed)
+    err = library().link_runs_write(
+        index, packed.data_ptr(), n_steps.data_ptr(), cert.data_ptr(),
+        ends.data_ptr(), N, SW, runs.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"link_runs write launch failed: CUDA error {err}")
+    link_runs.launches += 1
+    return runs
+
+
+def link_runs(packed, n_steps, cert):
+    """The walk's step codes as runs: packed (N, SW) int32 holding the
+    uint32 op words of link_walk (step s in nibble s % 8 of word s // 8, a
+    task's steps last-first), n_steps (N,) int32, cert (N,) bool. Returns
+    (runs (m, 3) int32, counts (N,) int64): the ops of each certified task
+    in forward order (op[n_steps - 1 - i] for i = 0 .. n_steps - 1), merged
+    into (op, length, 0) runs, task after task and never across tasks;
+    counts[t] the runs of task t (0 where cert is False). On the card a
+    count pass, the scan of the counts (torch.cumsum, int64), one
+    synchronisation for m and a write pass (launched only where m > 0);
+    each of the two kernels counts its launches in `link_runs.launches`.
+    CPU tensors run link_runs_ref."""
+    if not _cuda_or_cpu(packed, "link_runs"):
+        return link_runs_ref(packed, n_steps, cert)
+    N, _ = _check_runs(packed, n_steps, cert)
+    if N == 0:
+        return (torch.empty((0, 3), dtype=torch.int32, device=packed.device),
+                torch.empty(0, dtype=torch.int64, device=packed.device))
+    counts = _count_runs(packed, n_steps, cert)
+    ends = torch.cumsum(counts, 0)
+    runs = _write_runs(packed, n_steps, cert, ends, int(ends[-1]))
+    return runs, counts
+
+
+link_runs.launches = 0
+
+
+def link_runs_ref(packed, n_steps, cert):
+    """Plain PyTorch version of link_runs: vg_tpu's numpy decoding in torch
+    ops (the certified tasks' codes reversed, masked, flattened, split
+    where the op or the task changes)."""
+    dev = packed.device
+    N, SW = packed.shape
+    SW8 = 8 * SW
+    i64 = torch.int64
+    counts = torch.zeros(N, dtype=i64, device=dev)
+    ci = torch.nonzero(cert).flatten()
+    if ci.numel() == 0:
+        return torch.zeros((0, 3), dtype=torch.int32, device=dev), counts
+    ns = n_steps[ci].to(i64).clamp(0, SW8)
+    sh4 = torch.arange(8, device=dev) * 4
+    codes = ((packed[ci].to(i64)[:, :, None] & U32) >> sh4 & 15).reshape(
+        len(ci), SW8)
+    col = torch.arange(SW8, device=dev)
+    fwd = torch.gather(codes, 1, (ns[:, None] - 1 - col).clamp(0, SW8 - 1))
+    flat = fwd[col[None, :] < ns[:, None]]
+    tid = torch.repeat_interleave(torch.arange(len(ci), device=dev), ns)
+    brk = torch.ones(len(flat), dtype=torch.bool, device=dev)
+    brk[1:] = (flat[1:] != flat[:-1]) | (tid[1:] != tid[:-1])
+    starts = torch.nonzero(brk).flatten()
+    ends = torch.cat([starts[1:], starts.new_tensor([len(flat)])])[
+        : len(starts)]
+    runs = torch.zeros((len(starts), 3), dtype=torch.int32, device=dev)
+    runs[:, 0] = flat[starts].to(torch.int32)
+    runs[:, 1] = (ends - starts).to(torch.int32)
+    counts[ci] = torch.bincount(tid[starts], minlength=len(ci))
+    return runs, counts
+
+
+def runs_work(n_steps, cert, m: int) -> tuple:
+    """(bytes, operations) one link_runs call needs on these inputs: the
+    words holding each certified task's steps, n_steps and cert read once,
+    the counts and the m runs written once; RUNS_OPS_PER_STEP for each
+    step of a certified task."""
+    ns = torch.where(cert, n_steps.to(torch.int64).clamp_min(0), 0)
+    N = n_steps.shape[0]
+    nbytes = 4 * int(((ns + 7) // 8).sum()) + 5 * N + 8 * N + 12 * m
+    return nbytes, RUNS_OPS_PER_STEP * int(ns.sum())
