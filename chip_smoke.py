@@ -5,8 +5,8 @@
                           [--compare-parent DIR]
 
 Builds the port's kernels (vg_tpu_torch/csrc/banded_dp.cu,
-csrc/seed_kernels.cu, csrc/link_engine.cu and csrc/int_pipes.cu, nvcc) and
-the native host library
+csrc/seed_kernels.cu, csrc/link_engine.cu, csrc/mapq_cap.cu and
+csrc/int_pipes.cu, nvcc) and the native host library
 (vg_tpu_torch/native/vgtpu_host.cpp, g++) from the sources in the checkout,
 all at once, and holds every kernel against its plain PyTorch version on
 the card: the banded DP through its three entries (packed text, byte
@@ -62,11 +62,16 @@ kernels' launch counts set to 0 just before it and read just after:
   VGTPU_PLATFORM unset gives it) on the fixture's bundle written into a
   temporary directory and reads written as FASTQ: giraffe -2 on the
   paired path's 9 x 6144 pairs (records equal to map_pairs_encoded_mt on
-  a fresh mapper, placement, reads/s beside the library path's), map -A
+  a fresh mapper, placement, reads/s beside the library path's; the
+  explored-minimizer MAPQ cap launched once for each mate of each batch,
+  csrc/mapq_cap.cu, and the Python explored_cap never called), map -A
   on the vg map reads (records equal to MEMMapper's), mpmap single-end,
   -2 and -A on 1,024 reads or pairs (the card against the CPU on 64),
   then surject -b (against Surjector), pack, call, sim, giraffe -G,
-  gamcompare and mapeval -n 2000 on the files they made.
+  gamcompare and mapeval -n 2000 on the files they made; then the MAPQ
+  cap kernel against its plain version on ops/cap_cases.py's cases and
+  on both mates of a batch captured from the giraffe -2 run, and timed
+  on that batch.
 
 It checks the records (count, placement against the simulated truth, the
 card against the CPU, the long-read engines against each other).
@@ -273,7 +278,7 @@ def kernel_launches() -> dict:
 
 
 def kernel_wrappers() -> dict:
-    from vg_tpu_torch.ops import cuda_align, cuda_links, cuda_seed
+    from vg_tpu_torch.ops import cuda_align, cuda_links, cuda_mapqcap, cuda_seed
 
     return {"banded_dp": cuda_align.banded_scores_packed,
             "banded_dp_bytes": cuda_align.banded_scores_bytes,
@@ -285,7 +290,8 @@ def kernel_wrappers() -> dict:
             "link_fill": cuda_links.link_fill,
             "link_walk": cuda_links.link_walk,
             "link_pack": cuda_links.link_pack,
-            "link_runs": cuda_links.link_runs}
+            "link_runs": cuda_links.link_runs,
+            "mapq_cap": cuda_mapqcap.mapq_cap}
 
 
 def reset_launches() -> None:
@@ -336,7 +342,7 @@ def phase_build():
     """All libraries at once: nvcc for each kernel source, g++ for the
     host library. Any failing ends the run."""
     from vg_tpu_torch import native
-    from vg_tpu_torch.ops import cuda_align, cuda_links, cuda_seed
+    from vg_tpu_torch.ops import cuda_align, cuda_links, cuda_mapqcap, cuda_seed
 
     took, errors = {}, []
 
@@ -353,6 +359,7 @@ def phase_build():
                (("banded_dp.cu (nvcc)", cuda_align.library),
                 ("seed_kernels.cu (nvcc)", cuda_seed.library),
                 ("link_engine.cu (nvcc)", cuda_links.library),
+                ("mapq_cap.cu (nvcc)", cuda_mapqcap.library),
                 ("int_pipes.cu (nvcc)", pipes_library),
                 ("vgtpu_host.cpp (g++)", native.lib))]
     for t in threads:
@@ -364,7 +371,7 @@ def phase_build():
     for name, s in took.items():
         log(f"build {name}: {s:.1f} s")
     for info in (cuda_align.build_info, cuda_seed.build_info,
-                 cuda_links.build_info):
+                 cuda_links.build_info, cuda_mapqcap.build_info):
         for line in info.get("ptxas", "").splitlines():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
@@ -2647,10 +2654,162 @@ def gam_name(rec: bytes) -> str:
     return ""
 
 
+@contextlib.contextmanager
+def counted(obj, name, calls):
+    """Count the calls of obj.name in calls[0], from any thread."""
+    orig = getattr(obj, name)
+    lock = threading.Lock()
+
+    def counting(*a, **kw):
+        with lock:
+            calls[0] += 1
+        return orig(*a, **kw)
+    setattr(obj, name, counting)
+    try:
+        yield calls
+    finally:
+        setattr(obj, name, orig)
+
+
 def gam_records(path):
     from vg_tpu_torch.io.gam import read_messages
 
     return [bytes(r) for r in read_messages(pathlib.Path(path).read_bytes())]
+
+
+# ------------------------------------------------------------ MAPQ cap
+
+# H100 SXM: 64 FP64 lanes an SM a clock (NVIDIA's data sheet: 34 TFLOP/s
+# of float64 outside the tensor cores, an FMA counted as two)
+F64_OPS_PER_S = 132 * 64 * 1.98e9
+CAP_TOL = 1e-9            # phred: caps of the kernel against the plain's
+
+
+@contextlib.contextmanager
+def capture_caps(store, calls):
+    """GiraffeMapper._cap_inputs (called once for each apply_mapq_caps
+    that launches mapq_cap) counted in calls[0]; the first two calls of
+    the first thread that makes one (both mates of one paired batch) kept
+    in store as mapq_cap's inputs: (codes2d, rlen, quals2d, qlen) numpy
+    arrays, the mapper's key tensor, k and w."""
+    from vg_tpu_torch.map.giraffe import GiraffeMapper
+
+    orig = GiraffeMapper._cap_inputs
+    lock = threading.Lock()
+
+    def capturing(self, sb, quals, qlen):
+        out = orig(self, sb, quals, qlen)
+        tid = threading.get_ident()
+        with lock:
+            calls[0] += 1
+            if len(store) < 2 and (not store or store[0]["tid"] == tid):
+                store.append(dict(tid=tid, arrays=(*out, qlen.copy()),
+                                  keys=self._cap_keys()[0],
+                                  k=self.index.k, w=self.index.w))
+        return out
+    GiraffeMapper._cap_inputs = capturing
+    try:
+        yield store
+    finally:
+        GiraffeMapper._cap_inputs = orig
+
+
+def cap_args(codes2d, rlen, quals2d, qlen, keys, dev):
+    """mapq_cap's tensors on dev (keys a numpy int64 array or a tensor)."""
+    put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return (put(codes2d), put(rlen), put(quals2d), put(qlen),
+            keys.to(dev) if isinstance(keys, torch.Tensor) else put(keys))
+
+
+def capped_mapqs(caps) -> np.ndarray:
+    """(R, 61): apply_mapq_caps' rule (half to even, at least 0, below a
+    finite cap) at every MAPQ 0..60."""
+    m = np.arange(61)[None, :]
+    c = caps[:, None]
+    low = np.isfinite(c) & (c < m)
+    return np.where(low, np.maximum(np.rint(np.where(low, c, 0)), 0), m)
+
+
+def check_cap(args, k, w) -> dict:
+    """mapq_cap on the card against its plain version on the card, on
+    the same inputs: MAPQs that differ at any MAPQ 0..60, the largest cap
+    difference, caps not bit-identical, reads whose NaN or +inf differ."""
+    from vg_tpu_torch.ops import cuda_mapqcap
+
+    got = cuda_mapqcap.mapq_cap(*args, k=k, w=w).cpu().numpy()
+    want = cuda_mapqcap.mapq_cap_ref(*args, k=k, w=w).cpu().numpy()
+    nan, fin = np.isnan(want), np.isfinite(want)
+    kinds = int(((np.isnan(got) != nan)
+                 | (np.isposinf(got) != np.isposinf(want))).sum())
+    same = ~nan & ~np.isnan(got)
+    diff = np.abs(got[fin] - want[fin])
+    return dict(reads=len(want), finite=int(fin.sum()), kinds=kinds,
+                mapqs=int((capped_mapqs(got[same])
+                           != capped_mapqs(want[same])).sum()),
+                max_diff=float(np.nan_to_num(diff, nan=np.inf).max(
+                    initial=0.0)),
+                not_bitwise=int((got[fin] != want[fin]).sum()))
+
+
+def cap_bound(nbytes, int_ops, f64_ops) -> dict:
+    """The least time of a mapq_cap call: its bytes over the HBM rate,
+    or its operations over the issue rate (each takes an issue slot) and
+    its float64 operations over the FP64 lanes' rate, whichever is
+    longest."""
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = max((int_ops + f64_ops) / INT32_OPS_PER_S, f64_ops / F64_OPS_PER_S)
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="operations" if t_o >= t_b else "bytes",
+                bytes=nbytes, ops=int_ops + f64_ops, f64_ops=f64_ops)
+
+
+def phase_cap_kernel(captured, card) -> dict:
+    """The MAPQ cap kernel against its plain version on the card: every
+    ops/cap_cases.py case (reads of up to 10,000 bases among them, past
+    the kernel's shared-memory rows), 2,000 seeded reads, both mates of
+    the CLI's captured batch (0 differing MAPQs, caps within CAP_TOL);
+    then the kernel timed on the captured mate 1 beside its plain version
+    and its bound (cap_work)."""
+    from vg_tpu_torch.ops import cap_cases, cuda_mapqcap
+
+    t0 = time.time()
+    runs = [(name, cap_cases.case(name)) for name in cap_cases.CASES]
+    runs.append(("random 2000", cap_cases.random_case(0, 2000)))
+    worst, n_checks = dict(mapqs=0, max_diff=0.0, not_bitwise=0), 0
+    dev = torch.device("cuda")
+    inputs = []
+    for name, c in runs:
+        p = cap_cases.padded(c)
+        inputs.append((name, cap_args(p["codes2d"], p["rlen"], p["quals2d"],
+                                      p["qlen"], p["keys"], dev),
+                       c["k"], c["w"]))
+    for i, cap in enumerate(captured):
+        inputs.append((f"cli batch mate {i + 1}",
+                       cap_args(*cap["arrays"], cap["keys"], dev),
+                       cap["k"], cap["w"]))
+    for name, args, k, w in inputs:
+        d = check_cap(args, k, w)
+        n_checks += 1
+        log(f"mapq_cap vs plain on {name}: {json.dumps(d)}")
+        assert d["kinds"] == 0 and d["mapqs"] == 0, (name, d)
+        assert d["max_diff"] <= CAP_TOL, (name, d)
+        worst = {x: max(worst[x], d[x]) for x in worst}
+    assert len(captured) == 2, len(captured)
+    _, args, k, w = inputs[-2]                 # the CLI batch's mate 1
+    nbytes, int_ops, f64 = cuda_mapqcap.cap_work(*args, k=k, w=w)
+    run_k = lambda: cuda_mapqcap.mapq_cap(*args, k=k, w=w)
+    run_p = lambda: cuda_mapqcap.mapq_cap_ref(*args, k=k, w=w)
+    res = dict(timed_turns(run_k, run_p, 20, 1),
+               **cap_bound(nbytes, int_ops, f64),
+               mismatches=worst["mapqs"], max_abs_err=worst["max_diff"],
+               not_bitwise=worst["not_bitwise"], checks=n_checks,
+               shape=f"R={args[0].shape[0]} L={args[0].shape[1]} "
+                     f"LQ={args[2].shape[1]} keys={args[4].shape[0]}")
+    log(f"mapq_cap at {res['shape']}, the CLI batch's mate 1: "
+        f"{timing_text(res)}, {f64:.3e} of the ops float64; {n_checks} "
+        f"checks, worst {json.dumps(worst)}; phase "
+        f"{time.time() - t0:.1f} s on {card}")
+    return res
 
 
 def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
@@ -2664,10 +2823,13 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
        read by read, to map_pairs_encoded_mt on a fresh PairedGiraffeMapper
        with the same parsed pairs and batches wherever a read's batch
        went the same way through the pipeline in both runs (batch_paths),
-       >= 95% placed, banded_dp launched at least twice a batch; reads/s
+       >= 95% placed, banded_dp launched at least twice a batch, the
+       MAPQ cap (mapq_cap) once for each apply_mapq_caps call and so for
+       each mate of each batch, map/mapqcap.explored_cap never; reads/s
        overall and steady beside the library path's, with the FASTQ parse
        and the one-time setup (bundle load, MEM fallback index) timed
-       apart;
+       apart; the inputs of one batch's two cap calls kept for
+       phase_cap_kernel;
     2. map -A -o json on the `vg map` phase's timed reads: the quality
        entry launched once a batch, the records equal to that phase's
        MEMMapper(qual_adjusted=True) records;
@@ -2689,6 +2851,7 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     from vg_tpu_torch.io.fastq import Read, iter_fastq_paired
     from vg_tpu_torch.io.gam import Alignment
     from vg_tpu_torch.io.gamp import read_gamp
+    from vg_tpu_torch.map import mapqcap
     from vg_tpu_torch.map.giraffe import GiraffeMapper, GiraffeParams
     from vg_tpu_torch.map.memmapper import MEMIndex
     from vg_tpu_torch.map.paired import PairedGiraffeMapper
@@ -2714,16 +2877,20 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     parsed = list(iter_fastq_paired(fq1, fq2))
     t_parse = time.time() - t0
     ticks, kinds_cli, cap_cli = [], {}, [0.0]
+    captured, cap_calls, explored = [], [0], [0]
     stream, ticked = ticked_pairs_pipeline(ticks)
     pipeline.map_pairs_encoded_mt = ticked
     try:
         with batch_paths(kinds_cli), \
-                timed_method(GiraffeMapper, "apply_mapq_caps", cap_cli):
+                timed_method(GiraffeMapper, "apply_mapq_caps", cap_cli), \
+                capture_caps(captured, cap_calls), \
+                counted(mapqcap, "explored_cap", explored):
             dt, n = cli_run(["giraffe", "-Z", x, "-f", fq1, "-2", fq2,
                              "-B", str(bs), "--output",
                              str(d / "cli.gam")], platform=plat)
     finally:
         pipeline.map_pairs_encoded_mt = stream
+    n_batches = -(-len(pairs) // bs)
     cli_steady = steady_rate(ticks)
     recs = gam_records(d / "cli.gam")
     t0 = time.time()
@@ -2735,9 +2902,12 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     lib = PairedGiraffeMapper(GiraffeMapper(
         haps, idx, GiraffeParams(batch_reads=bs), device=device))
     ticks_lib, kinds_lib, want, cap_lib = [], {}, [], [0.0]
+    lib_calls = [0]
     t0 = time.time()
     with batch_paths(kinds_lib), \
-            timed_method(GiraffeMapper, "apply_mapq_caps", cap_lib):
+            timed_method(GiraffeMapper, "apply_mapq_caps", cap_lib), \
+            capture_caps([], lib_calls), \
+            counted(mapqcap, "explored_cap", explored):
         for out in stream(lib, (parsed[i : i + bs]
                                 for i in range(0, len(parsed), bs))):
             want += [bytes(r) for r in out]
@@ -2771,9 +2941,12 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
         f"(map_pairs_encoded_mt, fresh mapper, the parsed pairs) "
         f"{len(want) / dt_lib:.0f} reads/s overall, "
         f"{steady_rate(ticks_lib):.0f} steady; the explored-minimizer MAPQ "
-        f"cap (apply_mapq_caps, Python, reads with qualities) "
-        f"{cap_cli[0]:.2f} s in the CLI run and {cap_lib[0]:.2f} s in the "
-        f"library's, summed over the emitter threads; {100 * frac:.2f}% of "
+        f"cap (apply_mapq_caps, one mapq_cap call a mate, reads with "
+        f"qualities) {cap_cli[0]:.2f} s in the CLI run ({cap_calls[0]} "
+        f"calls) and {cap_lib[0]:.2f} s in the library's ({lib_calls[0]} "
+        f"calls), summed over the emitter threads; the Python explored_cap "
+        f"called {explored[0]} times; library stage seconds "
+        f"{json.dumps(lib.stage_seconds)}; {100 * frac:.2f}% of "
         f"{len(sample)} records (every {PLACE_EVERY}th) within 100 bp of "
         f"truth; launches {launched(n)}, on {card}")
     log(f"cli giraffe -2 vs the library path: {len(diff)} of {len(recs)} "
@@ -2786,8 +2959,14 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     assert len(got) == len(lib_by) == len(recs)
     assert not same_path, "cli giraffe -2 differs from the library path"
     assert frac >= 0.95, frac
+    assert explored[0] == 0, "the Python explored_cap ran"
+    # every mate of every batch has qualities: one cap launch each
+    assert cap_calls[0] == 2 * n_batches, (cap_calls, n_batches)
+    assert lib_calls[0] == 2 * n_batches, (lib_calls, n_batches)
     if on_card:
         assert n["banded_dp"] >= 2 * (len(pairs) // bs - 1), n
+        assert n["mapq_cap"] == cap_calls[0], (n, cap_calls)
+    cap_launches = n["mapq_cap"]
     del lib, want, parsed, lib_by, got
 
     # 2. map -A: the vg map phase's reads, quality-adjusted (JSON out: the
@@ -2901,6 +3080,7 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     assert me["total"] == 2000 and me["accuracy"] >= 0.9, me
     tmp.cleanup()
     log(f"cli phase {time.time() - t_phase:.1f} s on {card}")
+    return dict(cap_launches=cap_launches, captured=captured)
 
 
 # the kernels the device-seeded path launches (banded_dp_bytes lies on the
@@ -2937,6 +3117,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "link_runs": ("vg_tpu_torch/csrc/link_engine.cu",
                   "vg_tpu/ops/device_links.py:333-377 the step codes "
                   "turned into runs (numpy on the host; no Pallas kernel)"),
+    "mapq_cap": ("vg_tpu_torch/csrc/mapq_cap.cu",
+                 "vg_tpu/map/mapqcap.py:94-171 explored_cap and faster_cap, "
+                 "the explored-minimizer MAPQ cap (Python on the host, a "
+                 "read at a time; no Pallas kernel)"),
 }
 
 
@@ -3066,7 +3250,8 @@ def main(argv=None) -> int:
     phase_pack_call(haps, idx, mem, vcf, card, args.seed)
 
     # the command line: giraffe -2, map -A, mpmap, and the tools after them
-    phase_cli(haps, idx, pairs, truth, vgmap, card, args.seed)
+    cli = phase_cli(haps, idx, pairs, truth, vgmap, card, args.seed)
+    capk = phase_cap_kernel(cli["captured"], card)
     log(f"total {time.time() - t_start:.1f} s")
 
     rows = []
@@ -3084,6 +3269,9 @@ def main(argv=None) -> int:
         elif name == "banded_dp_qual":
             k = dict(qual, library_ms=None)
             n = vgmap["launches"]
+        elif name == "mapq_cap":     # the CLI's giraffe -2 on FASTQ
+            k = dict(capk, library_ms=None)
+            n = cli["cap_launches"]
         elif name in lr["kernels"]:  # bucket 256 of the long-read batch
             k = dict(lr["kernels"][name], library_ms=None)
             n = lr["launches"][name]

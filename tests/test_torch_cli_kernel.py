@@ -1,14 +1,16 @@
 """The port's command line on the card: `giraffe` (single-end and paired
 -2) writes the same GAM, and `map -A -o json` the same records, with
 VGTPU_PLATFORM unset (the card, through the banded-DP kernel and its
-quality entry) as with VGTPU_PLATFORM=cpu (their plain versions). Imports no JAX, so it runs on a
+quality entry, and giraffe's through the MAPQ cap kernel) as with
+VGTPU_PLATFORM=cpu (their plain versions). Imports no JAX, so it runs on a
 machine that has only the card's stack:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cli_kernel.py
 
 The fixture is the port's own: a random reference with SNPs and small
 indels in two phased samples, written as FASTA and VCF and indexed by the
-port's `autoindex`. Here, without a card, the `gpu` test skips and the CPU
+port's `autoindex`; a second FASTQ holds reads of 4,200 and 5,000 bases
+among short ones. Here, without a card, the `gpu` tests skip and the CPU
 test runs."""
 import json
 
@@ -18,7 +20,7 @@ import torch
 
 from vg_tpu_torch.cli.main import main
 from vg_tpu_torch.io.gam import read_gam
-from vg_tpu_torch.ops import cuda_align
+from vg_tpu_torch.ops import cuda_align, cuda_mapqcap
 
 torch.set_num_threads(1)
 
@@ -151,11 +153,42 @@ def test_cli_gam_on_the_card_equals_the_cpu(bundle, tmp_path, monkeypatch):
         want = _run(argv, tmp_path / f"{name}.cpu.gam", monkeypatch, "cpu")
         dp0 = cuda_align.banded_scores_packed.launches
         q0 = cuda_align.banded_scores_qual_packed.launches
+        c0 = cuda_mapqcap.mapq_cap.launches
         got = _run(argv, tmp_path / f"{name}.card.gam", monkeypatch, None)
         dp = cuda_align.banded_scores_packed.launches - dp0
         q = cuda_align.banded_scores_qual_packed.launches - q0
+        cap = cuda_mapqcap.mapq_cap.launches - c0
         assert got == want, name
         if name == "map-A":
             assert q >= N_READS // 128 and dp == 0, (name, dp, q)
         else:
-            assert dp >= 2 and q == 0, (name, dp, q)
+            # the MAPQ cap: once a batch of FASTQ reads, once a mate
+            assert dp >= 2 and q == 0 and cap >= 2, (name, dp, q, cap)
+
+
+@pytest.mark.gpu
+def test_cli_giraffe_long_read_on_the_card_equals_the_cpu(bundle, tmp_path,
+                                                          monkeypatch):
+    """giraffe single-end on a FASTQ whose batch holds reads of 5,000 and
+    4,200 bases among 150-base reads: the MAPQ cap kernel takes them (their
+    scratch in global memory) and the GAM equals the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    d, prefix = bundle
+    ref = np.array(["ACGT".index(b) for b in
+                    (d / "ref.fa").read_text().split("\n")[1]], np.uint8)
+    rng = np.random.default_rng(5)
+    reads = [("long0", _mutate(rng, ref[1000:6000])),
+             ("long1", _revcomp(_mutate(rng, ref[9000:13200])))]
+    for i in range(30):
+        s = int(rng.integers(0, REF_LEN - L))
+        reads.append((f"s{i}", _mutate(rng, ref[s : s + L])))
+    _fastq(tmp_path / "long.fq", reads, rng)
+    argv = ["giraffe", "-Z", prefix, "-f", str(tmp_path / "long.fq"),
+            "-B", "64"]
+    want = _run(argv, tmp_path / "long.cpu.gam", monkeypatch, "cpu")
+    c0 = cuda_mapqcap.mapq_cap.launches
+    got = _run(argv, tmp_path / "long.card.gam", monkeypatch, None)
+    assert cuda_mapqcap.mapq_cap.launches - c0 >= 1
+    assert got == want
+    assert len(list(read_gam(str(tmp_path / "long.card.gam")))) == len(reads)

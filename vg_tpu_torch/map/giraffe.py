@@ -36,6 +36,7 @@ unchanged.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
@@ -289,6 +290,10 @@ class GiraffeMapper:
         # other's entries (same fix as PairedGiraffeMapper._pair_steps)
         self._gf_cache: dict = {}      # graph-fallback (sub, dag) cache
         self._espans_prof: dict = {}   # emit sub-stage profile seconds
+        # the MAPQ cap's index keys on the device and, on the card, its
+        # stream: built once by whichever emitter thread gets there first
+        self._cap_lock = threading.Lock()
+        self._cap_state = None
         ref_names = ref_path_names
         if ref_names is None:
             from ..graph.arraygraph import SENSE_REFERENCE
@@ -1364,22 +1369,76 @@ class GiraffeMapper:
         """Explored-minimizer MAPQ cap for quality-carrying reads
         (reference src/minimizer_mapper.cpp:1161-1172: mapq =
         min(mapq, faster_cap(...)); infinite cap without qualities).
-        Host-side on winners only — reads without quality strings (the
-        bench path) pay nothing."""
-        from ..ops.qualadj import parse_quality
-        from .mapqcap import explored_cap
+        One call of ops/cuda_mapqcap.mapq_cap for the batch (the kernel
+        on the card, its plain version on the CPU) gives each read
+        map/mapqcap.explored_cap(codes, quals, k, w, index.count); a
+        finite cap below the MAPQ replaces it, rounded half to even.
+        Reads without quality strings (the bench path) pay nothing: a
+        batch without one launches nothing."""
+        quals = [(getattr(r, "quality", None) or "").encode()
+                 for r in sb.reads]
+        qlen = np.fromiter(map(len, quals), np.int32, len(quals))
+        if not qlen.any():
+            return mapqs
+        from ..ops.cuda_mapqcap import mapq_cap
 
-        p = self.params
-        k, w = self.index.k, self.index.w
-        for i, r in enumerate(sb.reads):
-            q = getattr(r, "quality", None)
-            if not q:
-                continue
-            cap = explored_cap(sb.codes[i], parse_quality(q), k, w,
-                               count_fn=self.index.count)
-            if np.isfinite(cap) and cap < mapqs[i]:
-                mapqs[i] = max(int(round(cap)), 0)
+        codes2d, rlen, quals2d = self._cap_inputs(sb, quals, qlen)
+        keys, stream = self._cap_keys()
+        with torch.cuda.stream(stream):      # None (the CPU): no-op
+            put = lambda a: torch.from_numpy(a).to(self.device)
+            caps = to_host(mapq_cap(put(codes2d), put(rlen), put(quals2d),
+                                    put(qlen), keys, k=self.index.k,
+                                    w=self.index.w))
+        if np.isnan(caps).any():
+            i = int(np.nonzero(np.isnan(caps))[0][0])
+            raise IndexError(f"read {sb.reads[i].name}: its quality "
+                             f"string ({qlen[i]}) is shorter than the "
+                             f"minimizers it covers")
+        low = np.isfinite(caps) & (caps < mapqs)
+        mapqs[low] = np.maximum(np.rint(caps[low]), 0)
         return mapqs
+
+    def _cap_inputs(self, sb: "ScoredBatch", quals: List[bytes],
+                    qlen: np.ndarray) -> tuple:
+        """mapq_cap's host inputs for a batch: codes2d (R, L) uint8 (the
+        batch's padded codes where it has them), rlen (R,) int32, quals2d
+        (R, LQ) uint8 phred, parse_quality's clip to 0-93 in one pass over
+        the joined strings."""
+        R = len(sb.reads)
+        rlen = np.fromiter(map(len, sb.codes), np.int32, R)
+        L = max(int(rlen.max()), 1)
+        c2 = sb.codes2d
+        if c2 is not None and c2.shape[0] >= R and c2.shape[1] >= L:
+            codes2d = np.ascontiguousarray(c2[:R])
+        else:
+            codes2d = np.full((R, L), 5, np.uint8)
+            codes2d[np.arange(L) < rlen[:, None]] = np.concatenate(sb.codes)
+        q = np.frombuffer(b"".join(quals), np.uint8).astype(np.int16) - 33
+        quals2d = np.zeros((R, int(qlen.max())), np.uint8)
+        quals2d[np.arange(quals2d.shape[1]) < qlen[:, None]] = np.clip(
+            q, 0, 93)
+        return codes2d, rlen, quals2d
+
+    def _cap_keys(self):
+        """(keys, stream): the index keys that occur, sorted, as an int64
+        tensor of their uint64 bits on the mapper's device, and on the
+        card the cap's own CUDA stream (so that its fetch waits for the
+        cap alone, not for the next batch's DP on the default stream);
+        built once, under a lock."""
+        if self._cap_state is None:
+            with self._cap_lock:
+                if self._cap_state is None:
+                    keys = np.asarray(self.index.keys, np.uint64)
+                    keys = np.unique(keys[np.diff(self.index.offsets) > 0])
+                    stream = (torch.cuda.Stream(self.device)
+                              if self.device.type == "cuda" else None)
+                    with torch.cuda.stream(stream):
+                        t = torch.from_numpy(keys.view(np.int64)).to(
+                            self.device)
+                    if stream is not None:
+                        stream.synchronize()
+                    self._cap_state = (t, stream)
+        return self._cap_state
 
     def _distinct_placements(self, sb: "ScoredBatch",
                              valid: np.ndarray) -> np.ndarray:
