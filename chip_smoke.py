@@ -64,14 +64,17 @@ kernels' launch counts set to 0 just before it and read just after:
   paired path's 9 x 6144 pairs (records equal to map_pairs_encoded_mt on
   a fresh mapper, placement, reads/s beside the library path's; the
   explored-minimizer MAPQ cap launched once for each mate of each batch,
-  csrc/mapq_cap.cu, and the Python explored_cap never called), map -A
+  csrc/mapq_cap.cu, and the Python explored_cap never called, in the CLI
+  run and the library's; the cap's call timed in parts, begun in the
+  rescue stage and waited for at emit), map -A
   on the vg map reads (records equal to MEMMapper's), mpmap single-end,
   -2 and -A on 1,024 reads or pairs (the card against the CPU on 64),
   then surject -b (against Surjector), pack, call, sim, giraffe -G,
   gamcompare and mapeval -n 2000 on the files they made; then the MAPQ
   cap kernel against its plain version on ops/cap_cases.py's cases and
-  on both mates of a batch captured from the giraffe -2 run, and timed
-  on that batch.
+  on both mates of a batch captured from the giraffe -2 run (caps
+  bit-equal), and timed on that batch: whole, its phases apart, and the
+  call's input build, upload and wait replayed right after the CLI run.
 
 It checks the records (count, placement against the simulated truth, the
 card against the CPU, the long-read engines against each other).
@@ -89,8 +92,9 @@ loads the vg_tpu_torch package of another checkout (DIR, e.g. a
 `git archive` of the parent commit), builds its kernels, and times its
 softcap_compact, cluster_topc, argsort_i32 and packed banded DP against
 this tree's on the main path's inputs, its link_fill and link_walk on
-the long-read batch's two buckets, and its quality entry on the vg map
-batch, in turns, after checking that both give the same outputs.
+the long-read batch's two buckets, its quality entry on the vg map
+batch, and its MAPQ cap on the giraffe -2 batch, in turns, after
+checking that both give the same outputs.
 
 Output: one line per phase, then a JSON line with the kernels' numbers,
 the card's name and power limit, and as the last line
@@ -360,6 +364,10 @@ def phase_build():
                 ("seed_kernels.cu (nvcc)", cuda_seed.library),
                 ("link_engine.cu (nvcc)", cuda_links.library),
                 ("mapq_cap.cu (nvcc)", cuda_mapqcap.library),
+                ("mapq_cap.cu, stopped after (a) (nvcc)",
+                 lambda: cuda_mapqcap.stopped_library(1)),
+                ("mapq_cap.cu, stopped after (b) (nvcc)",
+                 lambda: cuda_mapqcap.stopped_library(2)),
                 ("int_pipes.cu (nvcc)", pipes_library),
                 ("vgtpu_host.cpp (g++)", native.lib))]
     for t in threads:
@@ -2687,25 +2695,31 @@ CAP_TOL = 1e-9            # phred: caps of the kernel against the plain's
 
 @contextlib.contextmanager
 def capture_caps(store, calls):
-    """GiraffeMapper._cap_inputs (called once for each apply_mapq_caps
-    that launches mapq_cap) counted in calls[0]; the first two calls of
-    the first thread that makes one (both mates of one paired batch) kept
-    in store as mapq_cap's inputs: (codes2d, rlen, quals2d, qlen) numpy
-    arrays, the mapper's key tensor, k and w."""
+    """GiraffeMapper._cap_inputs (called once for each mapq_cap launch;
+    None, and not counted, for a batch without qualities) counted in
+    calls[0]; the first two calls of the first thread that makes one
+    (both mates of one paired batch) kept in store: mapq_cap's inputs
+    (codes2d, rlen, quals, qoff) as numpy arrays, the mapper's key tensor,
+    k and w, and the mapper and batch for replaying the call's parts
+    (cap_call_parts; phase_cli drops them after it)."""
     from vg_tpu_torch.map.giraffe import GiraffeMapper
 
     orig = GiraffeMapper._cap_inputs
     lock = threading.Lock()
 
-    def capturing(self, sb, quals, qlen):
-        out = orig(self, sb, quals, qlen)
+    def capturing(self, sb):
+        out = orig(self, sb)
+        if out is None:
+            return out
         tid = threading.get_ident()
         with lock:
             calls[0] += 1
             if len(store) < 2 and (not store or store[0]["tid"] == tid):
-                store.append(dict(tid=tid, arrays=(*out, qlen.copy()),
+                store.append(dict(tid=tid, arrays=tuple(
+                                      np.array(a) for a in out),
                                   keys=self._cap_keys()[0],
-                                  k=self.index.k, w=self.index.w))
+                                  k=self.index.k, w=self.index.w,
+                                  mapper=self, sb=sb))
         return out
     GiraffeMapper._cap_inputs = capturing
     try:
@@ -2714,10 +2728,70 @@ def capture_caps(store, calls):
         GiraffeMapper._cap_inputs = orig
 
 
-def cap_args(codes2d, rlen, quals2d, qlen, keys, dev):
+# the cap's call in parts: begin (rescue stage), _cap_begin (inside begin;
+# inline at emit for the warmup batches), its input build and upload,
+# apply at emit, and the wait for the caps inside apply
+CAP_PARTS = (("GiraffeMapper", "begin_mapq_caps"),
+             ("GiraffeMapper", "_cap_begin"),
+             ("GiraffeMapper", "_cap_inputs"),
+             ("GiraffeMapper", "_cap_upload"),
+             ("GiraffeMapper", "apply_mapq_caps"),
+             ("PendingCaps", "fetch"))
+
+
+@contextlib.contextmanager
+def cap_parts(acc):
+    """Wall seconds of each CAP_PARTS method in acc[name] and the calling
+    thread's CPU seconds in acc[name + "_cpu"] (time.thread_time: without
+    the waits for the GIL and for the card), summed over the threads;
+    acc["calls"][name] the calls."""
+    from vg_tpu_torch.map import giraffe
+
+    lock = threading.Lock()
+    acc.setdefault("calls", {})
+    origs = []
+    for cls_name, name in CAP_PARTS:
+        cls = getattr(giraffe, cls_name)
+        orig = getattr(cls, name)
+        acc[name] = acc[name + "_cpu"] = 0.0
+        acc["calls"][name] = 0
+
+        def timed(*a, _orig=orig, _name=name, **kw):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return _orig(*a, **kw)
+            finally:
+                dt, dc = time.perf_counter() - t0, time.thread_time() - c0
+                with lock:
+                    acc[_name] += dt
+                    acc[_name + "_cpu"] += dc
+                    acc["calls"][_name] += 1
+        setattr(cls, name, timed)
+        origs.append((cls, name, orig))
+    try:
+        yield acc
+    finally:
+        for cls, name, orig in origs:
+            setattr(cls, name, orig)
+
+
+def cap_parts_text(acc) -> str:
+    c = acc["calls"]
+    part = lambda n: f"{acc[n]:.4f} s (CPU {acc[n + '_cpu']:.4f}, {c[n]})"
+    inline = c["_cap_begin"] - c["begin_mapq_caps"]
+    return (f"begin {part('begin_mapq_caps')}, of it the input build "
+            f"{part('_cap_inputs')} and upload {part('_cap_upload')} (these "
+            f"two summed with the {inline} begun inline at emit); apply at "
+            f"emit {part('apply_mapq_caps')}, of it the wait "
+            f"{part('fetch')} and the {inline} inline begins "
+            f"{acc['_cap_begin'] - acc['begin_mapq_caps']:.4f} s (CPU "
+            f"{acc['_cap_begin_cpu'] - acc['begin_mapq_caps_cpu']:.4f})")
+
+
+def cap_args(codes2d, rlen, quals, qoff, keys, dev):
     """mapq_cap's tensors on dev (keys a numpy int64 array or a tensor)."""
     put = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
-    return (put(codes2d), put(rlen), put(quals2d), put(qlen),
+    return (put(codes2d), put(rlen), put(quals), put(qoff),
             keys.to(dev) if isinstance(keys, torch.Tensor) else put(keys))
 
 
@@ -2763,13 +2837,61 @@ def cap_bound(nbytes, int_ops, f64_ops) -> dict:
                 bytes=nbytes, ops=int_ops + f64_ops, f64_ops=f64_ops)
 
 
-def phase_cap_kernel(captured, card) -> dict:
+def host_ms(fn, reps=5) -> list:
+    """Host milliseconds of fn (it ends in a sync where it uses the card),
+    each of reps runs after a warm one."""
+    fn()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def cap_call_parts(cap) -> dict:
+    """The cap's call replayed on a captured batch, in parts, host ms each:
+    the input build (_cap_inputs), the upload (_cap_upload through the
+    pinned staging buffer, to the end of its copy), begin_mapq_caps to the
+    end of the kernel and the caps' copy home, and begin_mapq_caps then
+    apply_mapq_caps (build, upload, kernel, wait, fetch)."""
+    m, sb = cap["mapper"], cap["sb"]
+    _, stream = m._cap_keys()
+
+    def upload():
+        inputs = m._cap_inputs(sb)
+        with torch.cuda.stream(stream):
+            m._cap_upload(stream, *inputs)
+        stream.synchronize()
+
+    def begin():
+        m.begin_mapq_caps(sb)
+        sb.caps_pending.event.synchronize()
+        sb.caps_pending = None
+
+    mq = np.full(len(sb.reads), 60)
+
+    def whole():
+        m.begin_mapq_caps(sb)
+        m.apply_mapq_caps(sb, mq.copy())
+
+    out = dict(build_ms=host_ms(lambda: m._cap_inputs(sb)),
+               build_upload_ms=host_ms(upload), begin_ms=host_ms(begin),
+               begin_apply_ms=host_ms(whole))
+    return {x: min(v) for x, v in out.items()} | dict(runs=out)
+
+
+def phase_cap_kernel(captured, call_parts, card, parent=None) -> dict:
     """The MAPQ cap kernel against its plain version on the card: every
     ops/cap_cases.py case (reads of up to 10,000 bases among them, past
     the kernel's shared-memory rows), 2,000 seeded reads, both mates of
-    the CLI's captured batch (0 differing MAPQs, caps within CAP_TOL);
-    then the kernel timed on the captured mate 1 beside its plain version
-    and its bound (cap_work)."""
+    the CLI's captured batch (caps bit-equal, 0 differing MAPQs); then
+    the kernel timed on the captured mate 1 beside its plain version and
+    its bound (cap_work), and its phases apart (stopped after (a), after
+    (b): cuda_mapqcap.stopped_library); logged beside the call's parts
+    (call_parts, cap_call_parts' replay). With `parent`, the parent
+    tree's kernel (the padded phred form) on the same mate: the same
+    caps, bit for bit, then times in turns."""
     from vg_tpu_torch.ops import cap_cases, cuda_mapqcap
 
     t0 = time.time()
@@ -2779,9 +2901,9 @@ def phase_cap_kernel(captured, card) -> dict:
     dev = torch.device("cuda")
     inputs = []
     for name, c in runs:
-        p = cap_cases.padded(c)
-        inputs.append((name, cap_args(p["codes2d"], p["rlen"], p["quals2d"],
-                                      p["qlen"], p["keys"], dev),
+        p = cap_cases.ragged(c)
+        inputs.append((name, cap_args(p["codes2d"], p["rlen"], p["quals"],
+                                      p["qoff"], p["keys"], dev),
                        c["k"], c["w"]))
     for i, cap in enumerate(captured):
         inputs.append((f"cli batch mate {i + 1}",
@@ -2792,7 +2914,7 @@ def phase_cap_kernel(captured, card) -> dict:
         n_checks += 1
         log(f"mapq_cap vs plain on {name}: {json.dumps(d)}")
         assert d["kinds"] == 0 and d["mapqs"] == 0, (name, d)
-        assert d["max_diff"] <= CAP_TOL, (name, d)
+        assert d["not_bitwise"] == 0, (name, d)
         worst = {x: max(worst[x], d[x]) for x in worst}
     assert len(captured) == 2, len(captured)
     _, args, k, w = inputs[-2]                 # the CLI batch's mate 1
@@ -2804,11 +2926,70 @@ def phase_cap_kernel(captured, card) -> dict:
                mismatches=worst["mapqs"], max_abs_err=worst["max_diff"],
                not_bitwise=worst["not_bitwise"], checks=n_checks,
                shape=f"R={args[0].shape[0]} L={args[0].shape[1]} "
-                     f"LQ={args[2].shape[1]} keys={args[4].shape[0]}")
+                     f"Q={args[2].shape[0]} keys={args[4].shape[0]}")
     log(f"mapq_cap at {res['shape']}, the CLI batch's mate 1: "
         f"{timing_text(res)}, {f64:.3e} of the ops float64; {n_checks} "
-        f"checks, worst {json.dumps(worst)}; phase "
-        f"{time.time() - t0:.1f} s on {card}")
+        f"checks, worst {json.dumps(worst)} on {card}")
+    # the phases apart: every read stopped after (a), after (b), or not
+    lib = {1: cuda_mapqcap.stopped_library(1),
+           2: cuda_mapqcap.stopped_library(2), 3: cuda_mapqcap.library()}
+    split = {1: [], 2: [], 3: []}
+    for stop in (1, 2, 3, 3, 2, 1):
+        split[stop].append(device_ms(lambda: cuda_mapqcap.run_kernel(
+            lib[stop], *args, k=k, w=w), 20)[0])
+    t1, t2, t3 = (min(split[p]) for p in (1, 2, 3))
+    res["phase_ms"] = dict(a=t1, b=t2 - t1, c=t3 - t2, runs=split)
+    log(f"mapq_cap's phases on the CLI batch's mate 1 (device ms, stopped "
+        f"after (a), after (b), whole; runs {json.dumps(split)}): (a) "
+        f"minimizers {t1:.4f}, (b) filter and sort {t2 - t1:.4f}, (c) "
+        f"sweep {t3 - t2:.4f} on {card}")
+    res["call_parts"] = call_parts
+    log(f"mapq_cap's call on the CLI batch's mate 1, in parts: input build "
+        f"{call_parts['build_ms']:.3f} ms, with the upload "
+        f"{call_parts['build_upload_ms']:.3f}, begin to the caps at home "
+        f"{call_parts['begin_ms']:.3f}, begin and apply "
+        f"{call_parts['begin_apply_ms']:.3f} (host ms, the least of 5, "
+        f"replayed after the CLI run); the kernel {res['ms']:.4f} ms device "
+        f"time (the waits at emit in the CLI run: its giraffe -2 line) on "
+        f"{card}")
+    if parent:
+        res["compare_parent"] = compare_parent_cap(parent, args, k, w, card)
+    log(f"mapq_cap phase {time.time() - t0:.1f} s on {card}")
+    return res
+
+
+def compare_parent_cap(root, args, k, w, card) -> dict:
+    """The parent tree's mapq_cap (its first form: the qualities as padded
+    phred) against this tree's on the CLI batch's mate 1: caps bit-equal
+    (NaN and inf where the other has them), then device and enqueue
+    times in turns."""
+    from vg_tpu_torch.ops import cap_cases, cuda_mapqcap
+
+    par = load_parent(root, "cuda_mapqcap")
+    t0 = time.time()
+    par.library()
+    log(f"parent mapq_cap.cu built in {time.time() - t0:.1f} s from {root}")
+    for line in par.build_info.get("ptxas", "").splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log("  parent ptxas: " + line.strip())
+    quals2d, qlen = cap_cases.padded_quals(args[2].cpu().numpy(),
+                                           args[3].cpu().numpy())
+    pargs = (args[0], args[1], torch.as_tensor(quals2d, device="cuda"),
+             torch.as_tensor(qlen, device="cuda"), args[4])
+    got = cuda_mapqcap.mapq_cap(*args, k=k, w=w).cpu().numpy()
+    want = par.mapq_cap(*pargs, k=k, w=w).cpu().numpy()
+    same = np.array_equal(got, want, equal_nan=True)
+    log(f"mapq_cap, parent vs this tree on the CLI batch's mate 1: caps "
+        f"bit-equal {same} ({int((got != want).sum())} entries differ "
+        f"as numbers, NaN {int(np.isnan(got).sum())} / "
+        f"{int(np.isnan(want).sum())})")
+    assert same, "parent and this tree's mapq_cap differ"
+    mods = {"parent": (par, pargs), "this": (cuda_mapqcap, args)}
+    fn = lambda m: m[0].mapq_cap(*m[1], k=k, w=w)
+    res = dict(turns(f"mapq_cap on the CLI batch's mate 1 (R = "
+                     f"{args[0].shape[0]}, L = {args[0].shape[1]})", fn,
+                     mods, card))
+    print(json.dumps({"compare_parent_cap": res}), flush=True)
     return res
 
 
@@ -2876,13 +3057,13 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     t0 = time.time()
     parsed = list(iter_fastq_paired(fq1, fq2))
     t_parse = time.time() - t0
-    ticks, kinds_cli, cap_cli = [], {}, [0.0]
+    ticks, kinds_cli, cap_cli = [], {}, {}
     captured, cap_calls, explored = [], [0], [0]
     stream, ticked = ticked_pairs_pipeline(ticks)
     pipeline.map_pairs_encoded_mt = ticked
     try:
         with batch_paths(kinds_cli), \
-                timed_method(GiraffeMapper, "apply_mapq_caps", cap_cli), \
+                cap_parts(cap_cli), \
                 capture_caps(captured, cap_calls), \
                 counted(mapqcap, "explored_cap", explored):
             dt, n = cli_run(["giraffe", "-Z", x, "-f", fq1, "-2", fq2,
@@ -2890,6 +3071,11 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
                              str(d / "cli.gam")], platform=plat)
     finally:
         pipeline.map_pairs_encoded_mt = stream
+    # the cap's call replayed on mate 1 while the CLI's mapper is alive;
+    # after it the captured mates keep only the kernel's inputs
+    call_parts = cap_call_parts(captured[0]) if on_card else None
+    for cap in captured:
+        del cap["mapper"], cap["sb"]
     n_batches = -(-len(pairs) // bs)
     cli_steady = steady_rate(ticks)
     recs = gam_records(d / "cli.gam")
@@ -2901,11 +3087,12 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     t_mem = time.time() - t0
     lib = PairedGiraffeMapper(GiraffeMapper(
         haps, idx, GiraffeParams(batch_reads=bs), device=device))
-    ticks_lib, kinds_lib, want, cap_lib = [], {}, [], [0.0]
+    ticks_lib, kinds_lib, want, cap_lib = [], {}, [], {}
     lib_calls = [0]
+    n_lib0 = kernel_launches()
     t0 = time.time()
     with batch_paths(kinds_lib), \
-            timed_method(GiraffeMapper, "apply_mapq_caps", cap_lib), \
+            cap_parts(cap_lib), \
             capture_caps([], lib_calls), \
             counted(mapqcap, "explored_cap", explored):
         for out in stream(lib, (parsed[i : i + bs]
@@ -2913,6 +3100,7 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
             want += [bytes(r) for r in out]
             ticks_lib.append((time.time(), len(out)))
     dt_lib = time.time() - t0
+    lib_launches = kernel_launches()["mapq_cap"] - n_lib0["mapq_cap"]
     # records by name: pairs held back while the fragment model learns
     # come out after the stream, in the CLI and the library alike.
     # Placement on every PLACE_EVERY-th record (Python decoding of all
@@ -2941,10 +3129,11 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
         f"(map_pairs_encoded_mt, fresh mapper, the parsed pairs) "
         f"{len(want) / dt_lib:.0f} reads/s overall, "
         f"{steady_rate(ticks_lib):.0f} steady; the explored-minimizer MAPQ "
-        f"cap (apply_mapq_caps, one mapq_cap call a mate, reads with "
-        f"qualities) {cap_cli[0]:.2f} s in the CLI run ({cap_calls[0]} "
-        f"calls) and {cap_lib[0]:.2f} s in the library's ({lib_calls[0]} "
-        f"calls), summed over the emitter threads; the Python explored_cap "
+        f"cap (one mapq_cap call a mate, reads with qualities), summed "
+        f"over the threads: CLI run {cap_calls[0]} calls, "
+        f"{cap_parts_text(cap_cli)}; library run {lib_calls[0]} calls "
+        f"({lib_launches} launches), {cap_parts_text(cap_lib)}; the Python "
+        f"explored_cap "
         f"called {explored[0]} times; library stage seconds "
         f"{json.dumps(lib.stage_seconds)}; {100 * frac:.2f}% of "
         f"{len(sample)} records (every {PLACE_EVERY}th) within 100 bp of "
@@ -2966,6 +3155,7 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     if on_card:
         assert n["banded_dp"] >= 2 * (len(pairs) // bs - 1), n
         assert n["mapq_cap"] == cap_calls[0], (n, cap_calls)
+        assert lib_launches == lib_calls[0], (lib_launches, lib_calls)
     cap_launches = n["mapq_cap"]
     del lib, want, parsed, lib_by, got
 
@@ -3080,7 +3270,8 @@ def phase_cli(haps, idx, pairs, truth, vgmap, card, seed, bs=BATCH,
     assert me["total"] == 2000 and me["accuracy"] >= 0.9, me
     tmp.cleanup()
     log(f"cli phase {time.time() - t_phase:.1f} s on {card}")
-    return dict(cap_launches=cap_launches, captured=captured)
+    return dict(cap_launches=cap_launches, captured=captured,
+                call_parts=call_parts)
 
 
 # the kernels the device-seeded path launches (banded_dp_bytes lies on the
@@ -3251,7 +3442,8 @@ def main(argv=None) -> int:
 
     # the command line: giraffe -2, map -A, mpmap, and the tools after them
     cli = phase_cli(haps, idx, pairs, truth, vgmap, card, args.seed)
-    capk = phase_cap_kernel(cli["captured"], card)
+    capk = phase_cap_kernel(cli["captured"], cli["call_parts"], card,
+                            args.compare_parent)
     log(f"total {time.time() - t_start:.1f} s")
 
     rows = []

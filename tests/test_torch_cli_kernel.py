@@ -192,3 +192,51 @@ def test_cli_giraffe_long_read_on_the_card_equals_the_cpu(bundle, tmp_path,
     assert cuda_mapqcap.mapq_cap.launches - c0 >= 1
     assert got == want
     assert len(list(read_gam(str(tmp_path / "long.card.gam")))) == len(reads)
+
+
+@pytest.mark.gpu
+def test_paired_stream_begins_each_mates_cap_once_on_the_card(bundle):
+    """PairedGiraffeMapper on the card, warmed on the first batch, then
+    map_pairs_encoded_mt over the rest of the FASTQ pairs: the rescue
+    stage begins each mate's MAPQ cap (one mapq_cap launch a mate, all of
+    them there, none at emit) and the records equal the CPU mapper's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from vg_tpu_torch.cli.main import _load_bundle
+    from vg_tpu_torch.io.fastq import iter_fastq_paired
+    from vg_tpu_torch.map.giraffe import GiraffeMapper, GiraffeParams
+    from vg_tpu_torch.map.paired import PairedGiraffeMapper
+    from vg_tpu_torch.parallel.pipeline import map_pairs_encoded_mt
+
+    d, prefix = bundle
+    _, haps, idx = _load_bundle(prefix)
+    pairs = list(iter_fastq_paired(str(d / "r1.fq"), str(d / "r2.fq")))
+    bs = 32
+    batches = [pairs[i : i + bs] for i in range(bs, len(pairs), bs)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pm = PairedGiraffeMapper(GiraffeMapper(
+            haps, idx, GiraffeParams(batch_reads=bs), device=dev))
+        pm.map_pairs(pairs[:bs])
+        pm.finish()
+        assert pm.fragdist.finalized
+        begun, orig = [0, 0], pm.mapper.begin_mapq_caps
+
+        def begin(sb, orig=orig, begun=begun):
+            n0 = cuda_mapqcap.mapq_cap.launches
+            orig(sb)
+            begun[0] += 1
+            begun[1] += cuda_mapqcap.mapq_cap.launches - n0
+        pm.mapper.begin_mapq_caps = begin
+        c0 = cuda_mapqcap.mapq_cap.launches
+        out[dev] = [bytes(r) for recs in map_pairs_encoded_mt(
+            pm, iter(batches), emitters=2) for r in recs]
+        launched = cuda_mapqcap.mapq_cap.launches - c0
+        assert begun[0] == 2 * len(batches), begun
+        if dev == "cuda":
+            assert begun[1] == launched == 2 * len(batches), \
+                (begun, launched)
+        else:
+            assert launched == 0
+    assert len(out["cuda"]) == 2 * (len(pairs) - bs)
+    assert out["cuda"] == out["cpu"]

@@ -27,12 +27,16 @@ from vg_tpu.io.fastq import Read as JaxRead
 from vg_tpu.map import mapqcap as j_mapqcap
 from vg_tpu.map.giraffe import GiraffeMapper as JaxMapper
 from vg_tpu.map.giraffe import GiraffeParams as JaxParams
+from vg_tpu.map.paired import PairedGiraffeMapper as JaxPaired
+from vg_tpu.parallel.pipeline import map_pairs_encoded_mt as jax_mt
 from vg_tpu_torch.convert import state_from_arrays
 from vg_tpu_torch.io.fastq import Read
 from vg_tpu_torch.map import giraffe as tg
 from vg_tpu_torch.map import mapqcap as t_mapqcap
+from vg_tpu_torch.map.paired import PairedGiraffeMapper as TorchPaired
 from vg_tpu_torch.ops import cap_cases
 from vg_tpu_torch.ops import cuda_mapqcap
+from vg_tpu_torch.parallel.pipeline import map_pairs_encoded_mt as torch_mt
 
 # The suite runs in several worker processes at once: torch's intra-op
 # threads (spinning OpenMP) would oversubscribe the cores many times over.
@@ -56,10 +60,12 @@ def judge(module, c) -> np.ndarray:
     return np.array(out, np.float64)
 
 
-def plain(c) -> np.ndarray:
-    p = {x: torch.from_numpy(v) for x, v in cap_cases.padded(c).items()}
+def plain(c, p=None) -> np.ndarray:
+    """mapq_cap_ref on case c (laid out by cap_cases.ragged, or as p)."""
+    p = {x: torch.from_numpy(v) for x, v in
+         (p or cap_cases.ragged(c)).items()}
     return cuda_mapqcap.mapq_cap_ref(
-        p["codes2d"], p["rlen"], p["quals2d"], p["qlen"], p["keys"],
+        p["codes2d"], p["rlen"], p["quals"], p["qoff"], p["keys"],
         k=c["k"], w=c["w"]).numpy()
 
 
@@ -125,6 +131,48 @@ def test_cases_reach_their_paths():
     assert np.isposinf(short[-1])             # the all-N read
 
 
+def raw_quality_case() -> tuple:
+    """Reads of the phred60 case under FASTQ quality strings whose bytes
+    lie below '!' and above '~' (parse_quality clips them to 0 and 93),
+    with empty strings and strings shorter than their reads: (case with
+    the parsed phred, the strings)."""
+    c = cap_cases.case("phred60")
+    rng = np.random.default_rng(11)
+    reads, strs = [], []
+    for i, (codes, _) in enumerate(c["reads"]):
+        n = (0 if i % 9 == 4 else 60 if i % 9 == 7 else len(codes))
+        q = rng.integers(33, 74, n)
+        low = rng.random(n) < 0.15
+        q[low] = rng.integers(1, 33, int(low.sum()))        # below '!'
+        high = rng.random(n) < 0.15
+        q[high] = rng.integers(127, 256, int(high.sum()))   # above '~'
+        raw = q.astype(np.uint8)
+        strs.append(raw)
+        reads.append((codes, np.clip(raw.astype(np.int16) - 33, 0, 93
+                                     ).astype(np.uint8)))
+    return dict(c, reads=reads), strs
+
+
+def test_raw_byte_table_equals_padded_build():
+    """The ragged build (the quality bytes as read, parse_quality's - 33
+    and clip folded into PHRED_BY_BYTE) gives bit for bit the caps of the
+    padded build (the bytes parsed on the host into padded phred), and
+    vg_tpu's explored_cap on parse_quality's phred within TOL."""
+    c, strs = raw_quality_case()
+    p = cap_cases.ragged(c)
+    raw = dict(p, quals=np.concatenate(strs).astype(np.uint8))
+    assert raw["quals"].min() < 33 and raw["quals"].max() > 126
+    got = plain(c, raw)
+    quals2d, qlen = cap_cases.padded_quals(raw["quals"], raw["qoff"])
+    parsed = np.concatenate([quals2d[i, :n] for i, n in enumerate(qlen)])
+    padded = plain(c, dict(p, quals=parsed.astype(np.uint8) + 33))
+    np.testing.assert_array_equal(got, padded)
+    hold(got, judge(j_mapqcap, c))
+    assert np.isnan(got).sum() >= 3 and np.isposinf(got).sum() >= 3
+    assert cuda_mapqcap.PHRED_BY_BYTE[0] == cuda_mapqcap.PHRED[0]
+    assert cuda_mapqcap.PHRED_BY_BYTE[255] == cuda_mapqcap.PHRED[93]
+
+
 # ------------------------------------------------- the mapper, both packages
 
 @pytest.fixture(scope="module")
@@ -143,7 +191,7 @@ def mappers(tmp_path_factory):
     tm = tg.GiraffeMapper(t_haps, t_idx, tg.GiraffeParams(batch_reads=256),
                           device="cpu")
     sim = bench.simulate_reads(rng, haps, 240, read_len=150)
-    return dict(jm=jm, tm=tm, sim=sim, rng=rng)
+    return dict(jm=jm, tm=tm, sim=sim, rng=rng, haps=haps)
 
 
 def quality(rng, n, kind):
@@ -221,6 +269,82 @@ def test_short_quality_raises_as_vg_tpu(mappers):
         mappers["jm"].apply_mapq_caps(jsb, np.array([60]))
     with pytest.raises(IndexError):
         mappers["tm"].apply_mapq_caps(tsb, np.array([60]))
+
+
+def test_short_quality_raises_at_fetch(mappers):
+    """Begun early, the cap of a read whose quality is shorter than its
+    minimizers raises nothing until apply_mapq_caps fetches it, and then
+    the IndexError that names the read; the pending cap is spent."""
+    r = mappers["sim"][1]
+    tsb = mappers["tm"].score_reads([Read(r.name, r.sequence, "I" * 40)])
+    mappers["tm"].begin_mapq_caps(tsb)
+    assert tsb.caps_pending is not None
+    with pytest.raises(IndexError, match=r.name):
+        mappers["tm"].apply_mapq_caps(tsb, np.array([60]))
+    assert tsb.caps_pending is None
+
+
+PAIRS_BS = 256          # the mappers' batch_reads
+
+
+@pytest.fixture(scope="module")
+def paired(mappers):
+    """Both packages' PairedGiraffeMapper on the mappers, warmed on a
+    first batch (the fragment model finalized), and three more batches of
+    pairs whose reads carry qualities of several profiles."""
+    rng = np.random.default_rng(21)
+    sim = bench.simulate_pairs(rng, mappers["haps"], 4 * PAIRS_BS)
+    jpairs, tpairs = [], []
+    for i, (a, b) in enumerate(sim):
+        qa, qb = (quality(rng, len(a.sequence), i),
+                  quality(rng, len(b.sequence), i + 1))
+        jpairs.append((JaxRead(a.name, a.sequence, qa),
+                       JaxRead(b.name, b.sequence, qb)))
+        tpairs.append((Read(a.name, a.sequence, qa),
+                       Read(b.name, b.sequence, qb)))
+    jp, tp = JaxPaired(mappers["jm"]), TorchPaired(mappers["tm"])
+    warm = [[(x.encode(), y.encode()) for x, y in
+             pm.map_pairs(ps[:PAIRS_BS]) + pm.finish()]
+            for pm, ps in ((jp, jpairs), (tp, tpairs))]
+    assert jp.fragdist.finalized and tp.fragdist.finalized
+    assert warm[0] == warm[1]
+    cut = lambda ps: [ps[i : i + PAIRS_BS]
+                      for i in range(PAIRS_BS, len(ps), PAIRS_BS)]
+    return dict(jp=jp, tp=tp, jb=cut(jpairs), tb=cut(tpairs))
+
+
+@pytest.mark.parametrize("path", ["stream", "direct"])
+def test_begun_caps_equal_vg_tpu(paired, path, monkeypatch):
+    """Records byte-identical to vg_tpu's where the paired stream's rescue
+    stage begins each mate's cap and apply_mapq_caps finishes it at emit
+    (map_pairs_encoded_mt, two emitters), and where a batch never began
+    early (map_pairs_encoded): one mapq_cap call a mate either way."""
+    begun, calls = [], []
+    orig_begin = tg.GiraffeMapper.begin_mapq_caps
+    monkeypatch.setattr(tg.GiraffeMapper, "begin_mapq_caps",
+                        lambda self, sb: begun.append(1)
+                        or orig_begin(self, sb))
+    orig = cuda_mapqcap.mapq_cap
+    monkeypatch.setattr(cuda_mapqcap, "mapq_cap",
+                        lambda *a, **kw: calls.append(1) or orig(*a, **kw))
+    monkeypatch.setattr(t_mapqcap, "explored_cap", None)   # never called
+    if path == "stream":
+        batches = paired["tb"]
+        want = [[bytes(r) for r in recs] for recs in
+                jax_mt(paired["jp"], iter(paired["jb"]), emitters=2)]
+        got = [[bytes(r) for r in recs] for recs in
+               torch_mt(paired["tp"], iter(batches), emitters=2)]
+        assert len(begun) == 2 * len(batches)
+    else:
+        batches = paired["tb"][:1]
+        want = [[bytes(r) for r in
+                 paired["jp"].map_pairs_encoded(paired["jb"][0])]]
+        got = [[bytes(r) for r in
+                paired["tp"].map_pairs_encoded(batches[0])]]
+        assert not begun
+    assert len(calls) == 2 * len(batches)
+    assert [len(r) for r in got] == [2 * len(b) for b in batches]
+    assert got == want
 
 
 def test_cap_keys_built_once_by_concurrent_emitters(mappers):

@@ -6,10 +6,13 @@ the `gpu` tests also run on a machine that has only the card's stack:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_mapq_cap_kernel.py
 
 Here, without a card, the `gpu` tests skip and the cases' checks and the
-wrapper's CPU path run. pow and log10 are CUDA's on the card and the C
-library's (or SLEEF's) on the CPU, so caps are held to 1e-9 phred and the
-capped MAPQ exactly, at every MAPQ from 0 to 60. The parity of the plain
-version with vg_tpu's explored_cap is in tests/test_torch_mapq_cap.py."""
+wrapper's CPU path run. On the card the kernel's caps are bit-equal to
+the plain version's on the card (the same float64 operations in the same
+order, CUDA's pow and log10 on both). pow and log10 are the C library's
+(or SLEEF's) on the CPU, so against the plain version there caps are held
+to 1e-9 phred and the capped MAPQ exactly, at every MAPQ from 0 to 60.
+The parity of the plain version with vg_tpu's explored_cap is in
+tests/test_torch_mapq_cap.py."""
 import numpy as np
 import pytest
 import torch
@@ -41,11 +44,11 @@ def get_case(name):
 
 def tensors(c, dev):
     return {x: torch.from_numpy(v).to(dev)
-            for x, v in cap_cases.padded(c).items()}
+            for x, v in cap_cases.ragged(c).items()}
 
 
 def run(fn, t, c):
-    return fn(t["codes2d"], t["rlen"], t["quals2d"], t["qlen"], t["keys"],
+    return fn(t["codes2d"], t["rlen"], t["quals"], t["qoff"], t["keys"],
               k=c["k"], w=c["w"]).cpu().numpy()
 
 
@@ -143,15 +146,22 @@ def test_ties_case_ties_in_agglomeration_end():
 
 
 def test_padded_layout():
+    """ragged: codes padded with 5, each quality's FASTQ bytes (phred +
+    33) at its offsets; padded_quals gives them back as padded phred."""
     c = cap_cases.case("mixed_quality")
-    p = cap_cases.padded(c)
+    p = cap_cases.ragged(c)
+    assert p["qoff"][0] == 0 and p["qoff"][-1] == len(p["quals"])
+    quals2d, qlen = cap_cases.padded_quals(p["quals"], p["qoff"])
     for i, (s, q) in enumerate(c["reads"]):
         assert p["rlen"][i] == len(s)
         np.testing.assert_array_equal(p["codes2d"][i, : len(s)], s)
         assert (p["codes2d"][i, len(s):] == 5).all()
-        assert p["qlen"][i] == (0 if q is None else len(q))
+        a, b = p["qoff"][i], p["qoff"][i + 1]
+        assert b - a == qlen[i] == (0 if q is None else len(q))
         if q is not None:
-            np.testing.assert_array_equal(p["quals2d"][i, : len(q)], q)
+            np.testing.assert_array_equal(p["quals"][a:b], q + 33)
+            np.testing.assert_array_equal(quals2d[i, : len(q)], q)
+        assert (quals2d[i, qlen[i]:] == 0).all()
     np.testing.assert_array_equal(p["keys"].view(np.uint64), c["keys"])
 
 
@@ -174,8 +184,10 @@ def test_plain_version_rejects_bad_inputs():
     with pytest.raises(ValueError, match="rlen"):
         run(cuda_mapqcap.mapq_cap, bad, c)
     with pytest.raises(ValueError, match="k must"):
-        cuda_mapqcap.mapq_cap_ref(t["codes2d"], t["rlen"], t["quals2d"],
-                                  t["qlen"], t["keys"], k=32, w=11)
+        cuda_mapqcap.mapq_cap_ref(t["codes2d"], t["rlen"], t["quals"],
+                                  t["qoff"], t["keys"], k=32, w=11)
+    with pytest.raises(ValueError, match="qoff"):
+        run(cuda_mapqcap.mapq_cap, dict(t, qoff=t["qoff"][1:]), c)
 
 
 def test_cap_work_counts_the_sweep():
@@ -185,32 +197,38 @@ def test_cap_work_counts_the_sweep():
     t = tensors(c, "cpu")
     kw = dict(k=c["k"], w=c["w"])
     nbytes, int_ops, f64 = cuda_mapqcap.cap_work(
-        t["codes2d"], t["rlen"], t["quals2d"], t["qlen"], t["keys"], **kw)
+        t["codes2d"], t["rlen"], t["quals"], t["qoff"], t["keys"], **kw)
     R = len(c["reads"])
-    assert nbytes == 2 * 150 * R + 16 * R + 8 * len(c["keys"])
+    assert nbytes == 2 * 150 * R + 20 * R + 8 + 8 * len(c["keys"])
     assert int_ops > 0 and f64 > 0
-    noq = torch.zeros_like(t["qlen"])
+    noq = torch.zeros_like(t["qoff"])
     nb0, _, f0 = cuda_mapqcap.cap_work(t["codes2d"], t["rlen"],
-                                       t["quals2d"], noq, t["keys"], **kw)
-    assert f0 == 0 and nb0 == 16 * R + 8 * len(c["keys"])
+                                       t["quals"], noq, t["keys"], **kw)
+    assert f0 == 0 and nb0 == 20 * R + 8 + 8 * len(c["keys"])
+
+
+def offsets(qlen):
+    return torch.cumsum(torch.tensor([0] + qlen, dtype=torch.int64), 0)
 
 
 def test_scratch_plan():
     """Rows that all fit shared memory need no buffer; otherwise each read
     past SMEM_POSITIONS kmer positions with a quality gets its own
     8-aligned bytes, and the shared rows are sized by the widest that
-    fits, within the 48 KiB a block has without opting in."""
+    fits, within the 227 KB a block can have (four reads' scratch and
+    batch buffers; 48 KiB without opting in at rows of 150 bases, the
+    main path's)."""
     S, k = cuda_mapqcap.SMEM_POSITIONS, cap_cases.K
     B = cuda_mapqcap.SCRATCH_BYTES
-    assert B * S + 8 <= 48 * 1024
+    assert cuda_mapqcap.block_bytes(S) <= cuda_mapqcap.MAX_BLOCK_SMEM
+    assert cuda_mapqcap.block_bytes(150 - k + 1) <= 48 * 1024
     rlen = torch.tensor([150, EDGE], dtype=torch.int32)
-    qlen = torch.tensor([150, EDGE], dtype=torch.int32)
-    assert cuda_mapqcap.scratch_plan(rlen, qlen, EDGE, k) == (S, None, 0)
+    qoff = offsets([150, EDGE])
+    assert cuda_mapqcap.scratch_plan(rlen, qoff, EDGE, k) == (S, None, 0)
     rlen = torch.tensor([150, EDGE + 1, 10_000, 20_000, 300, 5],
                         dtype=torch.int32)
-    qlen = torch.tensor([150, EDGE + 1, 10_000, 0, 300, 5],
-                        dtype=torch.int32)
-    pos, off, total = cuda_mapqcap.scratch_plan(rlen, qlen, 20_000, k)
+    qoff = offsets([150, EDGE + 1, 10_000, 0, 300, 5])
+    pos, off, total = cuda_mapqcap.scratch_plan(rlen, qoff, 20_000, k)
     assert pos == 300 - k + 1
     m = [S + 1, 10_000 - k + 1]
     assert off[1:3].tolist() == [0, B * m[0] + 8]
@@ -220,14 +238,23 @@ def test_scratch_plan():
 
 # ------------------------------------------------------------- the card
 
+def kernel_vs_plain(c, dev) -> tuple:
+    """(the kernel's caps on case c, the plain version's on the CPU),
+    after checking one counted launch and the kernel's caps bit-equal to
+    the plain version's on the card."""
+    n0 = cuda_mapqcap.mapq_cap.launches
+    got = run(cuda_mapqcap.mapq_cap, tensors(c, dev), c)
+    assert cuda_mapqcap.mapq_cap.launches == n0 + 1
+    on_card = compare(got, run(cuda_mapqcap.mapq_cap_ref, tensors(c, dev),
+                               c))
+    assert on_card["not_bitwise"] == 0 and on_card["mapqs"] == 0, on_card
+    return got, run(cuda_mapqcap.mapq_cap_ref, tensors(c, "cpu"), c)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", CASES)
 def test_kernel_equals_plain_version(cuda_device, name):
-    c = get_case(name)
-    n0 = cuda_mapqcap.mapq_cap.launches
-    got = run(cuda_mapqcap.mapq_cap, tensors(c, cuda_device), c)
-    assert cuda_mapqcap.mapq_cap.launches == n0 + 1
-    want = run(cuda_mapqcap.mapq_cap_ref, tensors(c, "cpu"), c)
+    got, want = kernel_vs_plain(get_case(name), cuda_device)
     d = compare(got, want)
     print(f"{name}: {d}")
     assert d["mapqs"] == 0 and d["max_diff"] <= TOL, d
@@ -244,12 +271,9 @@ EDGE = cuda_mapqcap.SMEM_POSITIONS + cap_cases.K - 1
                          ids=["edge", "past_edge", "mixed", "all_wide"])
 def test_kernel_takes_reads_of_any_length(cuda_device, lengths):
     """Reads whose scratch fits shared memory and reads past it (global
-    scratch), alone and in one batch, equal the plain version."""
-    c = cap_cases.of_lengths(lengths)
-    n0 = cuda_mapqcap.mapq_cap.launches
-    got = run(cuda_mapqcap.mapq_cap, tensors(c, cuda_device), c)
-    assert cuda_mapqcap.mapq_cap.launches == n0 + 1
-    want = run(cuda_mapqcap.mapq_cap_ref, tensors(c, "cpu"), c)
+    scratch), alone and in one batch, equal the plain version (bit for bit
+    on the card)."""
+    got, want = kernel_vs_plain(cap_cases.of_lengths(lengths), cuda_device)
     d = compare(got, want)
     assert np.isfinite(want).sum() >= len(lengths) - 1
     assert d["mapqs"] == 0 and d["max_diff"] <= TOL, d
@@ -300,7 +324,9 @@ def test_launch_count_exact_under_threads(cuda_device):
 def test_kernel_rejects_bad_inputs(cuda_device):
     c = cap_cases.case("phred60")
     t = tensors(c, cuda_device)
-    with pytest.raises(ValueError, match="quals2d"):
-        run(cuda_mapqcap.mapq_cap, dict(t, quals2d=t["quals2d"].int()), c)
+    with pytest.raises(ValueError, match="quals"):
+        run(cuda_mapqcap.mapq_cap, dict(t, quals=t["quals"].int()), c)
+    with pytest.raises(ValueError, match="qoff"):
+        run(cuda_mapqcap.mapq_cap, dict(t, qoff=t["qoff"].int()), c)
     with pytest.raises(ValueError, match="keys"):
         run(cuda_mapqcap.mapq_cap, dict(t, keys=t["keys"].cpu()), c)

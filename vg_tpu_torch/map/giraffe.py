@@ -36,6 +36,7 @@ unchanged.
 """
 from __future__ import annotations
 
+import math
 import threading
 import time
 from dataclasses import dataclass, field
@@ -161,6 +162,9 @@ class ScoredBatch:
     # (dev_j, mm, bits): device-computed winner mismatch bitmaps for the
     # selection dev_j — rows whose chosen j differs recompute on host
     winner_mism: Optional[tuple] = None
+    # the MAPQ caps begun by GiraffeMapper.begin_mapq_caps, for
+    # apply_mapq_caps to finish
+    caps_pending: Optional["PendingCaps"] = None
 
     @property
     def scores(self) -> np.ndarray:
@@ -190,6 +194,39 @@ class ScoredBatch:
                 codes_rc2d=cut(self.codes_rc2d))
 
         return view(0, n), view(n, R)
+
+
+def cap_rule(caps: torch.Tensor) -> torch.Tensor:
+    """apply_mapq_caps' rule made ready where the caps are: (R + 1,)
+    float64, each finite cap rounded half to even and at least 0 (a MAPQ
+    above it falls to it: min(mapq, this)), +inf for an infinite cap,
+    NaN for a NaN one; the last entry the first NaN's index (R if none)."""
+    R = caps.shape[0]
+    nan = torch.isnan(caps)
+    ready = torch.where(torch.isfinite(caps), torch.round(caps).clamp(min=0),
+                        torch.where(nan, caps, math.inf))
+    first = torch.where(nan, torch.arange(R, dtype=caps.dtype,
+                                          device=caps.device), float(R))
+    return torch.cat([ready, first.min().reshape(1)])
+
+
+class PendingCaps:
+    """One batch's MAPQ caps in flight (GiraffeMapper.begin_mapq_caps):
+    caps, cap_rule's (R + 1,) float64 (a pinned host tensor on the card,
+    filled once `event` has passed; None for a batch without qualities),
+    and qoff, the quality strings' byte offsets."""
+
+    __slots__ = ("caps", "qoff", "event")
+
+    def __init__(self, caps=None, qoff=None, event=None):
+        self.caps, self.qoff, self.event = caps, qoff, event
+
+    def fetch(self) -> Optional[np.ndarray]:
+        """The caps, after waiting for them (the sync point). A finished
+        event is only queried: a wait hands the GIL to the other threads."""
+        if self.event is not None and not self.event.query():
+            self.event.synchronize()
+        return None if self.caps is None else self.caps.numpy()
 
 
 def str_blob(strs: Sequence[str]):
@@ -294,6 +331,9 @@ class GiraffeMapper:
         # stream: built once by whichever emitter thread gets there first
         self._cap_lock = threading.Lock()
         self._cap_state = None
+        # the cap's pinned staging buffer and the event of its last copy
+        self._stage_lock = threading.Lock()
+        self._cap_stage = (None, None)
         ref_names = ref_path_names
         if ref_names is None:
             from ..graph.arraygraph import SENSE_REFERENCE
@@ -1364,6 +1404,14 @@ class GiraffeMapper:
         mapqs = self.apply_mapq_caps(sb, mapqs)
         return self.emit_chosen(sb, best_j, mapqs, any_valid)
 
+    def begin_mapq_caps(self, sb: "ScoredBatch") -> None:
+        """Start the explored-minimizer MAPQ cap of sb's reads (see
+        apply_mapq_caps): build its inputs, upload them and launch
+        mapq_cap on the cap's stream, and leave the result pending on sb
+        for apply_mapq_caps. Lets a pipeline stage ahead of the emitters
+        (PairedGiraffeMapper.stage_rescue) take this work off them."""
+        sb.caps_pending = self._cap_begin(sb)
+
     def apply_mapq_caps(self, sb: "ScoredBatch",
                         mapqs: np.ndarray) -> np.ndarray:
         """Explored-minimizer MAPQ cap for quality-carrying reads
@@ -1372,52 +1420,104 @@ class GiraffeMapper:
         One call of ops/cuda_mapqcap.mapq_cap for the batch (the kernel
         on the card, its plain version on the CPU) gives each read
         map/mapqcap.explored_cap(codes, quals, k, w, index.count); a
-        finite cap below the MAPQ replaces it, rounded half to even.
-        Reads without quality strings (the bench path) pay nothing: a
-        batch without one launches nothing."""
-        quals = [(getattr(r, "quality", None) or "").encode()
-                 for r in sb.reads]
-        qlen = np.fromiter(map(len, quals), np.int32, len(quals))
-        if not qlen.any():
+        finite cap below the MAPQ replaces it, rounded half to even. The
+        call is begun by begin_mapq_caps where a caller did so (this then
+        waits for it and fetches), else here. Reads without quality
+        strings (the bench path) pay nothing: a batch without one
+        launches nothing."""
+        pending, sb.caps_pending = sb.caps_pending, None
+        if pending is None:
+            pending = self._cap_begin(sb)
+        caps = pending.fetch()
+        if caps is None:
             return mapqs
-        from ..ops.cuda_mapqcap import mapq_cap
-
-        codes2d, rlen, quals2d = self._cap_inputs(sb, quals, qlen)
-        keys, stream = self._cap_keys()
-        with torch.cuda.stream(stream):      # None (the CPU): no-op
-            put = lambda a: torch.from_numpy(a).to(self.device)
-            caps = to_host(mapq_cap(put(codes2d), put(rlen), put(quals2d),
-                                    put(qlen), keys, k=self.index.k,
-                                    w=self.index.w))
-        if np.isnan(caps).any():
-            i = int(np.nonzero(np.isnan(caps))[0][0])
+        i = int(caps[-1])
+        if i < len(caps) - 1:
+            qlen = int(pending.qoff[i + 1] - pending.qoff[i])
             raise IndexError(f"read {sb.reads[i].name}: its quality "
-                             f"string ({qlen[i]}) is shorter than the "
+                             f"string ({qlen}) is shorter than the "
                              f"minimizers it covers")
-        low = np.isfinite(caps) & (caps < mapqs)
-        mapqs[low] = np.maximum(np.rint(caps[low]), 0)
+        # one ufunc: each numpy call on the batch may hand the GIL to the
+        # pipeline's other threads
+        np.minimum(mapqs, caps[:-1], out=mapqs, casting="unsafe")
         return mapqs
 
-    def _cap_inputs(self, sb: "ScoredBatch", quals: List[bytes],
-                    qlen: np.ndarray) -> tuple:
-        """mapq_cap's host inputs for a batch: codes2d (R, L) uint8 (the
-        batch's padded codes where it has them), rlen (R,) int32, quals2d
-        (R, LQ) uint8 phred, parse_quality's clip to 0-93 in one pass over
-        the joined strings."""
+    def _cap_begin(self, sb: "ScoredBatch") -> PendingCaps:
+        """mapq_cap for sb's reads, cap_rule applied: on the CPU computed
+        here; on the card uploaded (_cap_upload) and launched on the cap's
+        stream, the result copied to pinned host memory behind an
+        event."""
+        inputs = self._cap_inputs(sb)
+        if inputs is None:
+            return PendingCaps()
+        from ..ops.cuda_mapqcap import mapq_cap
+
+        codes2d, rlen, quals, qoff = inputs
+        keys, stream = self._cap_keys()
+        k, w = self.index.k, self.index.w
+        if stream is None:                   # the CPU: the plain version
+            t = torch.from_numpy
+            caps = mapq_cap(t(np.ascontiguousarray(codes2d)), t(rlen),
+                            t(quals.copy()), t(qoff), keys, k=k, w=w)
+            return PendingCaps(cap_rule(caps), qoff)
+        with torch.cuda.stream(stream):
+            dev = self._cap_upload(stream, codes2d, rlen, quals, qoff)
+            caps = cap_rule(mapq_cap(*dev, keys, k=k, w=w))
+            host = torch.empty(caps.shape, dtype=caps.dtype,
+                               pin_memory=True)
+            host.copy_(caps, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return PendingCaps(host, qoff, event)
+
+    def _cap_inputs(self, sb: "ScoredBatch") -> Optional[tuple]:
+        """mapq_cap's host inputs for a batch, None where no read has a
+        quality: codes2d (R, L) uint8 (the batch's padded codes where it
+        has them), rlen (R,) int32, quals the quality strings' bytes
+        joined (str_blob: one join, one encode), qoff (R + 1,) int64."""
+        qoff, quals = str_blob([getattr(r, "quality", None) or ""
+                                for r in sb.reads])
+        if not qoff[-1]:
+            return None
         R = len(sb.reads)
         rlen = np.fromiter(map(len, sb.codes), np.int32, R)
         L = max(int(rlen.max()), 1)
         c2 = sb.codes2d
         if c2 is not None and c2.shape[0] >= R and c2.shape[1] >= L:
-            codes2d = np.ascontiguousarray(c2[:R])
+            codes2d = c2[:R]
         else:
             codes2d = np.full((R, L), 5, np.uint8)
             codes2d[np.arange(L) < rlen[:, None]] = np.concatenate(sb.codes)
-        q = np.frombuffer(b"".join(quals), np.uint8).astype(np.int16) - 33
-        quals2d = np.zeros((R, int(qlen.max())), np.uint8)
-        quals2d[np.arange(quals2d.shape[1]) < qlen[:, None]] = np.clip(
-            q, 0, 93)
-        return codes2d, rlen, quals2d
+        return codes2d, rlen, quals, qoff
+
+    def _cap_upload(self, stream, codes2d, rlen, quals, qoff) -> tuple:
+        """(codes2d, rlen, quals, qoff) on the card from one copy on the
+        cap's stream: laid out (qoff, rlen, codes2d, quals) in a reusable
+        pinned staging buffer, which the next call writes only after this
+        copy's event has passed."""
+        R, L = codes2d.shape
+        ends = np.cumsum([8 * (R + 1), 4 * R, R * L, quals.size]).tolist()
+        n = ends[-1]
+        with self._stage_lock:
+            buf, done = self._cap_stage
+            if done is not None and not done.query():
+                done.synchronize()
+            if buf is None or buf.numel() < n:
+                buf = torch.empty(-(-n // (1 << 20)) << 20,
+                                  dtype=torch.uint8, pin_memory=True)
+            h = buf.numpy()
+            h[: ends[0]].view(np.int64)[:] = qoff
+            h[ends[0] : ends[1]].view(np.int32)[:] = rlen
+            h[ends[1] : ends[2]].reshape(R, L)[:] = codes2d
+            h[ends[2] : n] = quals
+            d = torch.empty(n, dtype=torch.uint8, device=self.device)
+            d.copy_(buf[:n], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(stream)
+            self._cap_stage = (buf, done)
+        return (d[ends[1] : ends[2]].view(R, L),
+                d[ends[0] : ends[1]].view(torch.int32), d[ends[2] : n],
+                d[: ends[0]].view(torch.int64))
 
     def _cap_keys(self):
         """(keys, stream): the index keys that occur, sorted, as an int64

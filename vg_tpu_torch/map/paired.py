@@ -1145,8 +1145,9 @@ class PairedGiraffeMapper:
         return ("host", batch, self.score_pairs(batch))
 
     def stage_rescue(self, item_or_batch, scored=None):
-        """Middle pipeline stage: force the main DP fetch and dispatch
-        rescue DP; the rescue fetch stays lazy for stage_emit."""
+        """Middle pipeline stage: begin both mates' MAPQ caps, force the
+        main DP fetch and dispatch rescue DP; the rescue fetch and the
+        caps' wait stay lazy for stage_emit."""
         _t0 = _time.time()
         try:
             return self._stage_rescue_inner(item_or_batch, scored)
@@ -1166,6 +1167,7 @@ class PairedGiraffeMapper:
         tl = getattr(batch, "true_len", None)
         if kind == "dev":
             sb1, sb2, sel = item[2]
+            self._begin_caps(sb1, sb2)
             # the packed fetch fills sb1/sb2 scores as a side effect
             selh = self._force_device_sel(sel, len(batch))
             st2 = self._rescue_begin(sb1, sb2, tl)
@@ -1174,11 +1176,19 @@ class PairedGiraffeMapper:
         sb1, sb2 = item[2]
         if not self.fragdist.finalized:
             return ("warmup", batch, (sb1, sb2))
+        self._begin_caps(sb1, sb2)
         _ = sb1.scores
         _ = sb2.scores
         st2 = self._rescue_begin(sb1, sb2, tl)   # rescues sb2
         st1 = self._rescue_begin(sb2, sb1, tl)   # rescues sb1
         return ("main", batch, sb1, sb2, st1, st2)
+
+    def _begin_caps(self, sb1: ScoredBatch, sb2: ScoredBatch) -> None:
+        """Both mates' MAPQ caps begun here, off the emitter threads;
+        apply_mapq_caps at emit waits for them (warmup items, which the
+        emit lock serializes, still begin and finish theirs there)."""
+        self.mapper.begin_mapq_caps(sb1)
+        self.mapper.begin_mapq_caps(sb2)
 
     def _eprof(self, key, dt):
         """Accumulate emit sub-stage seconds (VGTPU_EMIT_PROF=1)."""

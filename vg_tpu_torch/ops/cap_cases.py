@@ -10,8 +10,9 @@ array or None), and `keys`, the sorted uint64 minimizer keys of an index
 is the minimizers of a random 20 kbp genome (both strands share canonical
 keys), the canonical keys of the cases' repeat kmers, and random 64-bit
 keys, half of them at or above 2^63 (a signed comparison sorts them before
-the rest). `padded(case)` lays a case out as mapq_cap takes it. CASES
-names them:
+the rest). `ragged(case)` lays a case out as mapq_cap takes it (qualities
+as FASTQ bytes, phred + 33); `padded_quals` turns those bytes into the
+padded phred layout the kernel's first form took. CASES names them:
 
 - "phred60": 64 reads of 150 bases from the genome (both strands, 1%
   substitutions), phred drawn from 0-60;
@@ -205,22 +206,38 @@ def of_lengths(lengths, seed: int = 0) -> dict:
     return dict(reads=_reads_of(rng, genome, lengths), keys=keys, k=K, w=W)
 
 
-def padded(c: dict) -> dict:
+def ragged(c: dict) -> dict:
     """The case as mapq_cap's numpy inputs: codes2d (R, L) uint8 padded
-    with 5, rlen (R,) int32, quals2d (R, LQ) uint8 padded with 0, qlen
-    (R,) int32 (0 without a quality), keys (K,) int64 (the uint64 bits)."""
+    with 5, rlen (R,) int32, quals the reads' qualities as FASTQ bytes
+    (phred + 33) one after another (none for a read without one), qoff
+    (R + 1,) int64 their offsets, keys (K,) int64 (the uint64 bits)."""
     reads = c["reads"]
     R = len(reads)
     rlen = np.array([len(s) for s, _ in reads], np.int32)
-    qlen = np.array([0 if q is None else len(q) for _, q in reads], np.int32)
+    qlen = np.array([0 if q is None else len(q) for _, q in reads], np.int64)
     codes2d = np.full((R, max(int(rlen.max(initial=0)), 1)), 5, np.uint8)
-    quals2d = np.zeros((R, max(int(qlen.max(initial=0)), 1)), np.uint8)
-    for i, (s, q) in enumerate(reads):
+    for i, (s, _) in enumerate(reads):
         codes2d[i, : len(s)] = s
-        if q is not None:
-            quals2d[i, : len(q)] = q
-    return dict(codes2d=codes2d, rlen=rlen, quals2d=quals2d, qlen=qlen,
-                keys=np.asarray(c["keys"], np.uint64).view(np.int64))
+    qoff = np.zeros(R + 1, np.int64)
+    np.cumsum(qlen, out=qoff[1:])
+    quals = np.concatenate([np.zeros(0, np.uint8)] + [
+        np.asarray(q, np.uint8) + 33 for _, q in reads if q is not None])
+    return dict(codes2d=codes2d, rlen=rlen, quals=quals.astype(np.uint8),
+                qoff=qoff, keys=np.asarray(c["keys"], np.uint64).view(
+                    np.int64))
+
+
+def padded_quals(quals: np.ndarray, qoff: np.ndarray) -> tuple:
+    """FASTQ quality bytes as the kernel's first form took them: (quals2d
+    (R, LQ) uint8 phred, parse_quality's byte - 33 clipped to 0-93,
+    padded with 0; qlen (R,) int32)."""
+    qlen = np.diff(qoff).astype(np.int32)
+    R = len(qlen)
+    quals2d = np.zeros((R, max(int(qlen.max(initial=0)), 1)), np.uint8)
+    phred = np.clip(quals.astype(np.int16) - 33, 0, 93).astype(np.uint8)
+    quals2d[np.arange(quals2d.shape[1]) < qlen[:, None]] = phred[
+        : int(qoff[-1])]
+    return quals2d, qlen
 
 
 def count_fn(keys: np.ndarray):

@@ -38,15 +38,16 @@ def nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(src: pathlib.Path, info: dict) -> ctypes.CDLL:
+def build(src: pathlib.Path, info: dict, defines=()) -> ctypes.CDLL:
     """Compile `src` (unless a library of the same source and flags is
     already built), load it and fill `info` with its path, the seconds
-    the build and load took and the ptxas report. Raises on any build or
-    load failure. Callers serialise builds of one source themselves, so
-    that different sources build in parallel."""
+    the build and load took and the ptxas report. `defines` are extra
+    nvcc -D definitions ("NAME=VALUE"). Raises on any build or load
+    failure. Callers serialise builds of one source themselves, so that
+    different sources build in parallel."""
     text = src.read_bytes()
-    tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    tag = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     build_dir = pathlib.Path(os.environ.get(
         "VGTPU_TORCH_KERNEL_CACHE", str(PKG / "_build")))
     build_dir.mkdir(parents=True, exist_ok=True)
@@ -55,7 +56,7 @@ def build(src: pathlib.Path, info: dict) -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not so.exists():
         tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [nvcc(), *NVCC_FLAGS, str(src), "-o", str(tmp)]
+        cmd = [nvcc(), *flags, str(src), "-o", str(tmp)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name} "

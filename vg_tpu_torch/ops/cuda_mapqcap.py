@@ -10,6 +10,11 @@ CPU tensors run `mapq_cap_ref`, its plain PyTorch version. The device of
 the tensors decides, nothing falls back. The source note says what the
 kernel computes, step by step, and how it is laid out.
 
+Inputs. The reads' codes padded to (R, L) with their lengths, and their
+FASTQ quality strings as bytes, ragged: one joined byte string and R + 1
+offsets. parse_quality's parse (the byte - 33, clipped to 0-93) is folded
+into PHRED_BY_BYTE, the 10^(-q/10) of each of the 256 byte values.
+
 Exactness. Both follow the copy's float64 operations in its order: the
 phred probabilities from PHRED, a table made with Python's ** (the copy's
 own bits); float(hash) as one rounding ((hi, lo) halves here: hi 2^32 + lo
@@ -41,25 +46,45 @@ from .devseed import M32, wang_hash64
 
 _SRC = cuda_build.PKG / "csrc" / "mapq_cap.cu"
 # kmer positions of the widest read whose scratch (SCRATCH_BYTES a
-# position, + 8) lies in shared memory (24,584 bytes a block); a read with
-# more takes it from a global buffer
+# position, + 8) lies in shared memory; a read with more takes it from a
+# global buffer
 SMEM_POSITIONS = 512
-SCRATCH_BYTES = 48
+SCRATCH_BYTES = 40
+# the kernel's block: READS_PER_BLOCK warps, a read each, with a
+# WARP_BUF_BYTES buffer each for the sweep's batches in shared memory; at
+# most MAX_BLOCK_SMEM bytes
+READS_PER_BLOCK = 4
+WARP_BUF_BYTES = 2080
+MAX_BLOCK_SMEM = 232_448
 MAX_K = 31
 # 10^(-q/10) for every uint8 phred, as the copy computes it
 PHRED = [10.0 ** (-float(q) / 10.0) for q in range(256)]
+# the same doubles by FASTQ quality byte: parse_quality's byte - 33,
+# clipped to 0-93
+PHRED_BY_BYTE = [PHRED[min(max(b - 33, 0), 93)] for b in range(256)]
 INT64_MIN = -(2 ** 63)
 INT64_MAX = 2 ** 63 - 1
 _CHUNK = 1 << 12           # intervals a step of the plain column products
 
 _lib = None
 _lib_lock = threading.Lock()
+_stopped: dict = {}        # stop_after -> the timing build of the kernel
+_stopped_lock = threading.Lock()
 _count_lock = threading.Lock()   # two emitter threads launch at once
 _phred_dev: dict = {}            # device -> the PHRED tensor on it
 build_info: dict = {}      # path, seconds, ptxas report of the last build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def _load(info: dict, defines=()) -> ctypes.CDLL:
+    lib = cuda_build.build(_SRC, info, defines)
+    lib.mapq_cap.restype = _I
+    lib.mapq_cap.argtypes = ([_I, _P, _I, _I, _P, _P, ctypes.c_longlong, _P,
+                              _P, ctypes.c_longlong, _P, _I, _I, _I, _P, _P,
+                              _P, _P])
+    return lib
 
 
 def library() -> ctypes.CDLL:
@@ -69,28 +94,47 @@ def library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib = cuda_build.build(_SRC, build_info)
-        lib.mapq_cap.restype = _I
-        lib.mapq_cap.argtypes = ([_I, _P, _I, _I, _P, _P, _I, _P, _P,
-                                  ctypes.c_longlong, _P, _I, _I, _I, _P, _P,
-                                  _P, _P])
-        _lib = lib
+        if _lib is None:
+            _lib = _load(build_info)
         return _lib
 
 
+def stopped_library(stop_after: int) -> ctypes.CDLL:
+    """The kernel built to stop every read after phase (a) (stop_after 1)
+    or (b) (2), its caps +inf (-DMAPQ_CAP_STOP_AFTER): a timing build, to
+    split the kernel's time over its phases. mapq_cap never loads it."""
+    if stop_after not in (1, 2):
+        raise ValueError(f"stop_after must be 1 or 2, not {stop_after}")
+    with _stopped_lock:
+        if stop_after not in _stopped:
+            _stopped[stop_after] = _load(
+                {}, (f"MAPQ_CAP_STOP_AFTER={stop_after}",))
+        return _stopped[stop_after]
+
+
 def _phred_table(dev: torch.device) -> torch.Tensor:
+    """PHRED_BY_BYTE on dev, made once; on the card its copy has finished
+    before any stream uses it."""
     with _lib_lock:
         if dev not in _phred_dev:
-            _phred_dev[dev] = torch.tensor(PHRED, dtype=torch.float64,
-                                           device=dev)
+            t = torch.tensor(PHRED_BY_BYTE, dtype=torch.float64)
+            if dev.type == "cuda":
+                t = t.to(dev)
+                torch.cuda.current_stream(dev).synchronize()
+            _phred_dev[dev] = t
         return _phred_dev[dev]
 
 
-def _check_inputs(codes2d, rlen, quals2d, qlen, keys, k, w) -> tuple:
-    if codes2d.dim() != 2 or quals2d.dim() != 2 or keys.dim() != 1:
-        raise ValueError("mapq_cap: codes2d and quals2d must be 2-D, keys "
+def block_bytes(smem_pos: int) -> int:
+    """The kernel's shared bytes a block when rows of smem_pos kmer
+    positions lie in shared memory (csrc/mapq_cap.cu's launch)."""
+    warp = -(-(WARP_BUF_BYTES + SCRATCH_BYTES * smem_pos + 8) // 16) * 16
+    return READS_PER_BLOCK * warp
+
+
+def _check_inputs(codes2d, rlen, quals, qoff, keys, k, w) -> tuple:
+    if codes2d.dim() != 2 or quals.dim() != 1 or keys.dim() != 1:
+        raise ValueError("mapq_cap: codes2d must be 2-D, quals and keys "
                          "1-D")
     if not (1 <= k <= MAX_K and w >= 1):
         raise ValueError(f"mapq_cap: k must lie in 1..{MAX_K} and w be "
@@ -99,55 +143,72 @@ def _check_inputs(codes2d, rlen, quals2d, qlen, keys, k, w) -> tuple:
     R, L = codes2d.shape
     _check(codes2d, "mapq_cap: codes2d", torch.uint8, (R, L), dev)
     _check(rlen, "mapq_cap: rlen", torch.int32, (R,), dev)
-    _check(quals2d, "mapq_cap: quals2d", torch.uint8,
-           (R, quals2d.shape[1]), dev)
-    _check(qlen, "mapq_cap: qlen", torch.int32, (R,), dev)
+    _check(quals, "mapq_cap: quals", torch.uint8, quals.shape, dev)
+    _check(qoff, "mapq_cap: qoff", torch.int64, (R + 1,), dev)
     _check(keys, "mapq_cap: keys", torch.int64, keys.shape, dev)
     return R, L
 
 
-def mapq_cap(codes2d, rlen, quals2d, qlen, keys, *, k: int, w: int):
+def mapq_cap(codes2d, rlen, quals, qoff, keys, *, k: int, w: int):
     """The explored-minimizer MAPQ cap of R reads: codes2d (R, L) uint8
     read codes (0-4; rlen[r] of row r are the read's), rlen (R,) int32,
-    quals2d (R, LQ) uint8 phred (qlen[r] of row r; 0 for a read without a
-    quality), qlen (R,) int32, keys (K,) int64 the uint64 bits of the
-    index's minimizer keys that occur (MinimizerIndex.count > 0), sorted
-    as unsigned. Returns (R,) float64: explored_cap(codes, quals, k, w,
-    count_fn=index.count) of each read, +inf where it is +inf (no quality,
-    no kept minimizer, no finite cap), NaN where it raises IndexError.
-    Reads of any length: on the card, a batch with a row of more than
-    SMEM_POSITIONS kmer positions gives the reads that have more (and a
-    quality) scratch in global memory, sized on the host after one sync
-    of the current stream."""
+    quals (Q,) uint8 the reads' FASTQ quality bytes one after another
+    (phred + 33; read r's are quals[qoff[r]:qoff[r + 1]], an empty range
+    for a read without a quality), qoff (R + 1,) int64 nondecreasing from
+    0 (offsets past Q are cut to Q), keys (K,) int64 the uint64 bits of
+    the index's minimizer keys that occur (MinimizerIndex.count > 0),
+    sorted as unsigned. Returns (R,) float64: explored_cap(codes,
+    parse_quality(quality), k, w, count_fn=index.count) of each read,
+    +inf where it is +inf (no quality, no kept minimizer, no finite cap),
+    NaN where it raises IndexError. Reads of any length: on the card, a
+    batch with a row of more than SMEM_POSITIONS kmer positions gives the
+    reads that have more (and a quality) scratch in global memory, sized
+    on the host after one sync of the current stream."""
     if not _cuda_or_cpu(codes2d, "mapq_cap"):
-        return mapq_cap_ref(codes2d, rlen, quals2d, qlen, keys, k=k, w=w)
-    R, L = _check_inputs(codes2d, rlen, quals2d, qlen, keys, k, w)
-    dev = codes2d.device
-    cap = torch.empty(R, dtype=torch.float64, device=dev)
-    if R == 0:
-        return cap
-    smem_pos, ws_off, total = scratch_plan(rlen, qlen, L, k)
-    ws = (None if ws_off is None
-          else torch.empty(total, dtype=torch.uint8, device=dev))
-    phred = _phred_table(dev)
-    index, stream = cuda_build.launch_args(codes2d)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    err = library().mapq_cap(
-        index, codes2d.data_ptr(), R, L, rlen.data_ptr(), quals2d.data_ptr(),
-        quals2d.shape[1], qlen.data_ptr(), keys.data_ptr(), keys.shape[0],
-        phred.data_ptr(), k, w, smem_pos, ptr(ws_off), ptr(ws),
-        cap.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"mapq_cap launch failed: CUDA error {err}")
-    with _count_lock:
-        mapq_cap.launches += 1
+        return mapq_cap_ref(codes2d, rlen, quals, qoff, keys, k=k, w=w)
+    cap = run_kernel(library(), codes2d, rlen, quals, qoff, keys, k, w)
+    if cap.shape[0]:
+        with _count_lock:
+            mapq_cap.launches += 1
     return cap
 
 
 mapq_cap.launches = 0
 
 
-def scratch_plan(rlen, qlen, L: int, k: int) -> tuple:
+def run_kernel(lib, codes2d, rlen, quals, qoff, keys, k: int, w: int):
+    """The kernel of lib (library(), or another build of csrc/mapq_cap.cu)
+    on mapq_cap's CUDA inputs, on the current stream (no launch for
+    R = 0); not counted."""
+    R, L = _check_inputs(codes2d, rlen, quals, qoff, keys, k, w)
+    dev = codes2d.device
+    cap = torch.empty(R, dtype=torch.float64, device=dev)
+    if R == 0:
+        return cap
+    smem_pos, ws_off, total = scratch_plan(rlen, qoff, L, k)
+    ws = (None if ws_off is None
+          else torch.empty(total, dtype=torch.uint8, device=dev))
+    phred = _phred_table(dev)
+    index, stream = cuda_build.launch_args(codes2d)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.mapq_cap(
+        index, codes2d.data_ptr(), R, L, rlen.data_ptr(), quals.data_ptr(),
+        quals.shape[0], qoff.data_ptr(), keys.data_ptr(), keys.shape[0],
+        phred.data_ptr(), k, w, smem_pos, ptr(ws_off), ptr(ws),
+        cap.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mapq_cap launch failed: CUDA error {err}")
+    return cap
+
+
+def quality_lengths(qoff, Q: int):
+    """(start, length) of each read's quality bytes, the offsets cut to
+    0 .. Q as the kernel cuts them."""
+    qa = qoff[:-1].clamp(0, Q)
+    return qa, torch.maximum(qoff[1:].clamp(max=Q), qa) - qa
+
+
+def scratch_plan(rlen, qoff, L: int, k: int) -> tuple:
     """Where each read's scratch lies: (smem_pos, ws_off, total). Reads
     of at most smem_pos kmer positions use shared memory; a read with more
     and a quality has SCRATCH_BYTES m + 8 bytes from ws_off[r] of a
@@ -159,6 +220,9 @@ def scratch_plan(rlen, qlen, L: int, k: int) -> tuple:
     if smem_pos <= SMEM_POSITIONS:
         return smem_pos, None, 0
     m = (rlen.to(torch.int64).clamp(0, L) - k + 1).clamp(min=0)
+    # a read with a quality to the kernel has qoff[r + 1] > qoff[r] (its
+    # cut of the offsets to 0 .. Q only shortens a range)
+    qlen = qoff[1:] - qoff[:-1]
     m = torch.where(qlen > 0, m, 0)
     wide = m > SMEM_POSITIONS
     need = torch.where(wide, SCRATCH_BYTES * m + 8, 0)
@@ -276,16 +340,17 @@ def _intervals(mn: dict, qlen) -> dict:
                 bottom=pick(3), top=pick(4))
 
 
-def _interval_logs(mn: dict, iv: dict, quals2d, k: int):
+def _interval_logs(mn: dict, iv: dict, quals, qa, k: int):
     """log10 of each interval's probability (-inf where it is 0): each
     column's product over the group in order, then the columns folded
-    left to right. The intervals go in chunks of like width."""
-    dev = quals2d.device
+    left to right. The intervals go in chunks of like width; read r's
+    column i is quals[qa[r] + i]."""
+    dev = quals.device
     f64 = torch.float64
     phred = _phred_table(dev)
     I = iv["row"].numel()
     out = torch.empty(I, dtype=f64, device=dev)
-    LQ = quals2d.shape[1]
+    last = quals.numel() - 1
     nmax = mn["off"].shape[1]
     flat = {x: mn[x][iv["rows"]].reshape(-1)
             for x in ("off", "ast", "aend", "hf")}
@@ -298,7 +363,7 @@ def _interval_logs(mn: dict, iv: dict, quals2d, k: int):
         G = int((top - bottom).max())
         cols = left[:, None] + torch.arange(W, device=dev)
         act = cols < right[:, None]
-        q = quals2d[iv["rows"][row][:, None], cols.clamp(max=LQ - 1)]
+        q = quals[(qa[iv["rows"][row]][:, None] + cols).clamp(max=last)]
         cp = phred[q.to(torch.int64)]
         for g in range(G):
             at = row * nmax + (bottom + g).clamp(max=nmax - 1)
@@ -319,22 +384,21 @@ def _interval_logs(mn: dict, iv: dict, quals2d, k: int):
     return out
 
 
-def mapq_cap_ref(codes2d, rlen, quals2d, qlen, keys, *, k: int, w: int):
+def mapq_cap_ref(codes2d, rlen, quals, qoff, keys, *, k: int, w: int):
     """Plain PyTorch version of mapq_cap (same arguments and result)."""
-    R, L = _check_inputs(codes2d, rlen, quals2d, qlen, keys, k, w)
+    R, L = _check_inputs(codes2d, rlen, quals, qoff, keys, k, w)
     dev = codes2d.device
     f64 = torch.float64
     cap = torch.full((R,), math.inf, dtype=f64, device=dev)
     if R == 0 or L < k:
         return cap
-    LQ = quals2d.shape[1]
-    qlen = qlen.to(torch.int64).clamp(max=LQ)
+    qa, qlen = quality_lengths(qoff, quals.numel())
     mn = _minimizers(codes2d, rlen, keys, k, w)
     iv = _intervals(mn, qlen)
     rows, row = iv["rows"], iv["row"]
     if row.numel() == 0:              # no interval: each c[n] stays -inf
         return cap
-    here = _interval_logs(mn, iv, quals2d, k)
+    here = _interval_logs(mn, iv, quals, qa, k)
     Rr = rows.numel()
     # the DP: each read's intervals in order (row is sorted), a step each
     bad = torch.zeros(Rr, dtype=torch.bool, device=dev)
@@ -383,18 +447,19 @@ F64_PER_PAIR, F64_PER_COLUMN, F64_PER_INTERVAL, F64_PER_UPDATE = 6, 4, 2, 1
 INT_PER_PAIR, INT_PER_STEP = 8, 12
 
 
-def cap_work(codes2d, rlen, quals2d, qlen, keys, *, k: int, w: int) -> tuple:
+def cap_work(codes2d, rlen, quals, qoff, keys, *, k: int, w: int) -> tuple:
     """(bytes, int ops, float64 ops) one mapq_cap call needs on these
-    inputs: each read's codes and quality bases, rlen and qlen, the keys
+    inputs: each read's codes and quality bytes, rlen and qoff, the keys
     once, the caps written once; the operations above, counted on the
     sweep these inputs take (the plain version's intervals and groups,
     the pairs inside a minimizer's core left out of the float64 count).
-    The kernel does more (it rebuilds each kmer from its k bases and
-    rescans each window); the bound counts what the function needs."""
+    The kernel does more (it finds each kmer's windows by scanning up to
+    w - 1 hashes on each side, and builds each lane's first kmer from its
+    k bases); the bound counts what the function needs."""
     R, L = codes2d.shape
     rl = rlen.to(torch.int64).clamp(0, L)
-    ql = qlen.to(torch.int64).clamp(0, quals2d.shape[1])
-    nbytes = (int(rl[ql > 0].sum()) + int(ql.sum()) + 8 * R
+    ql = quality_lengths(qoff, quals.numel())[1]
+    nbytes = (int(rl[ql > 0].sum()) + int(ql.sum()) + 4 * R + 8 * (R + 1)
               + 8 * keys.numel() + 8 * R)
     positions = int((rl - k + 1).clamp(min=0)[ql > 0].sum())
     int_ops = positions * (ROLL_OPS + HASH_OPS + WINDOW_OPS)
