@@ -1,0 +1,10 @@
+"""Host seconds of the paired pipeline's emit stage in the window (the
+port's PairedGiraffeMapper.stage_seconds["emit"], summed over the stage's
+threads), in microseconds a read."""
+
+
+def read(layer):
+    d = layer.get("stage_delta", {}).get("emit")
+    if d is None or not layer.get("reads"):
+        return None
+    return 1e6 * d / layer["reads"]
