@@ -52,6 +52,7 @@ from ..io.gam import Alignment, Path
 from ..ops import align as align_ops
 from ..ops.traceback import banded_traceback
 from ..utils import dna
+from ..utils.stagetime import StageClock
 from .mapq import mapq_exact
 from .project import PathPositionIndex, text_alignment_to_path
 
@@ -326,7 +327,10 @@ class GiraffeMapper:
         # a lazy getattr could each assign a fresh dict and drop the
         # other's entries (same fix as PairedGiraffeMapper._pair_steps)
         self._gf_cache: dict = {}      # graph-fallback (sub, dag) cache
-        self._espans_prof: dict = {}   # emit sub-stage profile seconds
+        # spans of the host stages (score.*, cap.*, emit.*); a paired
+        # mapper built over this one hands it its own clock, so that
+        # they sum into its stage_seconds
+        self.stage_clock = StageClock()
         # the MAPQ cap's index keys on the device and, on the card, its
         # stream: built once by whichever emitter thread gets there first
         self._cap_lock = threading.Lock()
@@ -724,71 +728,81 @@ class GiraffeMapper:
         packed2 = exc2 = None
         n_exc = -1
         reads_arr = reads_rc_arr = None
-        if equal_len:
-            L0 = int(lens[0])
-            blob = "".join(r.sequence for r in reads)
-            # fused native pass: encode + reverse complement + the
-            # 2-bit wire words (ops/xfer.pack_reads2 semantics) in one
-            # OpenMP sweep — three numpy passes (~2 us/read) otherwise
-            from ..native import native_encode_pack_reads
-            from ..ops.xfer import EXC_CAP
-
-            res_n = native_encode_pack_reads(blob.encode(), R, L0,
-                                             Rpad, RL, EXC_CAP,
-                                             want_packed=want_packed2)
-            if res_n is not None:
-                reads_arr, reads_rc_arr, packed2, exc2, n_exc = res_n
-                codes2d = reads_arr[:R, :L0]
-                rc2d = reads_rc_arr[:R, :L0]
-            else:
-                codes2d = dna.encode(blob).reshape(R, L0)
-                rc2d = dna.complement_codes(codes2d)[:, ::-1]
-            codes = list(codes2d)
-            codes_rc = list(rc2d)
-        else:
-            codes = [dna.encode(r.sequence) for r in reads]
-            codes_rc = [dna.revcomp_codes(c) for c in codes]
-        if reads_arr is None:
-            reads_arr = np.full((Rpad, RL), 5, dtype=np.uint8)
-            reads_rc_arr = np.full((Rpad, RL), 5, dtype=np.uint8)
+        clock = self.stage_clock
+        with clock.span("score.encode"):
             if equal_len:
                 L0 = int(lens[0])
-                reads_arr[:R, :L0] = codes2d
-                reads_rc_arr[:R, :L0] = rc2d
+                blob = "".join(r.sequence for r in reads)
+                # fused native pass: encode + reverse complement + the
+                # 2-bit wire words (ops/xfer.pack_reads2 semantics) in
+                # one OpenMP sweep — three numpy passes (~2 us/read)
+                # otherwise
+                from ..native import native_encode_pack_reads
+                from ..ops.xfer import EXC_CAP
+
+                res_n = native_encode_pack_reads(blob.encode(), R, L0,
+                                                 Rpad, RL, EXC_CAP,
+                                                 want_packed=want_packed2)
+                if res_n is not None:
+                    reads_arr, reads_rc_arr, packed2, exc2, n_exc = res_n
+                    codes2d = reads_arr[:R, :L0]
+                    rc2d = reads_rc_arr[:R, :L0]
+                else:
+                    codes2d = dna.encode(blob).reshape(R, L0)
+                    rc2d = dna.complement_codes(codes2d)[:, ::-1]
+                codes = list(codes2d)
+                codes_rc = list(rc2d)
             else:
-                for i, c in enumerate(codes):
-                    reads_arr[i, : len(c)] = c
-                    reads_rc_arr[i, : len(c)] = codes_rc[i]
+                codes = [dna.encode(r.sequence) for r in reads]
+                codes_rc = [dna.revcomp_codes(c) for c in codes]
+            if reads_arr is None:
+                reads_arr = np.full((Rpad, RL), 5, dtype=np.uint8)
+                reads_rc_arr = np.full((Rpad, RL), 5, dtype=np.uint8)
+                if equal_len:
+                    L0 = int(lens[0])
+                    reads_arr[:R, :L0] = codes2d
+                    reads_rc_arr[:R, :L0] = rc2d
+                else:
+                    for i, c in enumerate(codes):
+                        reads_arr[i, : len(c)] = c
+                        reads_rc_arr[i, : len(c)] = codes_rc[i]
 
         import time as _time
 
         _t0 = _time.time()
         cand_refpath = np.full((R, C), -1, np.int32)
         cand_refoff = np.zeros((R, C), np.int64)
-        if equal_len:
-            # fast path: one vectorized seeding pass over the whole batch
-            cs, clo, chi, crev, cval, crp, cro = self._seed_batch(codes2d)
-            cand_start = np.zeros((Rpad, C), np.int32); cand_start[:R] = cs
-            cand_lo = np.zeros((Rpad, C), np.int32); cand_lo[:R] = clo
-            cand_hi = np.zeros((Rpad, C), np.int32); cand_hi[:R] = chi
-            cand_rev = np.zeros((Rpad, C), bool); cand_rev[:R] = crev
-            cand_valid = np.zeros((Rpad, C), bool); cand_valid[:R] = cval
-            cand_refpath[:] = crp
-            cand_refoff[:] = cro
-        else:
-            cand_lists = [self._seed_read(c) for c in codes]
-            cand_start = np.zeros((Rpad, C), dtype=np.int32)
-            cand_lo = np.zeros((Rpad, C), dtype=np.int32)
-            cand_hi = np.zeros((Rpad, C), dtype=np.int32)
-            cand_rev = np.zeros((Rpad, C), dtype=bool)
-            cand_valid = np.zeros((Rpad, C), dtype=bool)
-            for i, cl in enumerate(cand_lists):
-                for j, c in enumerate(cl):
-                    cand_start[i, j] = c.diag - p.band_radius
-                    cand_lo[i, j] = c.lo
-                    cand_hi[i, j] = c.hi
-                    cand_rev[i, j] = c.is_rev
-                    cand_valid[i, j] = True
+        with clock.span("score.seed"):
+            if equal_len:
+                # fast path: one vectorized seeding pass over the batch
+                cs, clo, chi, crev, cval, crp, cro = \
+                    self._seed_batch(codes2d)
+                cand_start = np.zeros((Rpad, C), np.int32)
+                cand_start[:R] = cs
+                cand_lo = np.zeros((Rpad, C), np.int32)
+                cand_lo[:R] = clo
+                cand_hi = np.zeros((Rpad, C), np.int32)
+                cand_hi[:R] = chi
+                cand_rev = np.zeros((Rpad, C), bool)
+                cand_rev[:R] = crev
+                cand_valid = np.zeros((Rpad, C), bool)
+                cand_valid[:R] = cval
+                cand_refpath[:] = crp
+                cand_refoff[:] = cro
+            else:
+                cand_lists = [self._seed_read(c) for c in codes]
+                cand_start = np.zeros((Rpad, C), dtype=np.int32)
+                cand_lo = np.zeros((Rpad, C), dtype=np.int32)
+                cand_hi = np.zeros((Rpad, C), dtype=np.int32)
+                cand_rev = np.zeros((Rpad, C), dtype=bool)
+                cand_valid = np.zeros((Rpad, C), dtype=bool)
+                for i, cl in enumerate(cand_lists):
+                    for j, c in enumerate(cl):
+                        cand_start[i, j] = c.diag - p.band_radius
+                        cand_lo[i, j] = c.lo
+                        cand_hi[i, j] = c.hi
+                        cand_rev[i, j] = c.is_rev
+                        cand_valid[i, j] = True
 
         # MEM re-seed fallback: a read whose every 29-mer spans an
         # allele combination absent from the indexed haplotypes gets
@@ -796,14 +810,15 @@ class GiraffeMapper:
         # giraffe re-seeds via its fallback stages). Such reads still
         # have piecewise exact matches to some haplotype, so seed them
         # from the suffix array instead (rare; host-side).
-        zero = ~cand_valid[:R].any(axis=1)
-        mem_rows = None
-        if (zero.any() and p.mem_fallback
-                and len(self.haps.text) <= p.mem_fallback_max_text):
-            mem_rows = np.nonzero(zero)[0]
-            self._mem_reseed(mem_rows, codes,
-                             (cand_start, cand_lo, cand_hi, cand_rev,
-                              cand_valid))
+        with clock.span("score.mem"):
+            zero = ~cand_valid[:R].any(axis=1)
+            mem_rows = None
+            if (zero.any() and p.mem_fallback
+                    and len(self.haps.text) <= p.mem_fallback_max_text):
+                mem_rows = np.nonzero(zero)[0]
+                self._mem_reseed(mem_rows, codes,
+                                 (cand_start, cand_lo, cand_hi, cand_rev,
+                                  cand_valid))
         # reference projection of the candidate READ START (diag): both
         # seeders (native + numpy) already emit this diag-based value
         # (verified element-equal to _diag_refproj), so only rows written
@@ -1424,51 +1439,61 @@ class GiraffeMapper:
         call is begun by begin_mapq_caps where a caller did so (this then
         waits for it and fetches), else here. Reads without quality
         strings (the bench path) pay nothing: a batch without one
-        launches nothing."""
+        launches nothing. Spans: cap.apply, the wait for the caps inside
+        it cap.wait (a cap begun here is cap.begin's, outside them)."""
         pending, sb.caps_pending = sb.caps_pending, None
         if pending is None:
             pending = self._cap_begin(sb)
-        caps = pending.fetch()
-        if caps is None:
+        clock = self.stage_clock
+        with clock.span("cap.apply", cpu=True):
+            with clock.span("cap.wait"):
+                caps = pending.fetch()
+            if caps is None:
+                return mapqs
+            i = int(caps[-1])
+            if i < len(caps) - 1:
+                qlen = int(pending.qoff[i + 1] - pending.qoff[i])
+                raise IndexError(f"read {sb.reads[i].name}: its quality "
+                                 f"string ({qlen}) is shorter than the "
+                                 f"minimizers it covers")
+            # one ufunc: each numpy call on the batch may hand the GIL to
+            # the pipeline's other threads
+            np.minimum(mapqs, caps[:-1], out=mapqs, casting="unsafe")
             return mapqs
-        i = int(caps[-1])
-        if i < len(caps) - 1:
-            qlen = int(pending.qoff[i + 1] - pending.qoff[i])
-            raise IndexError(f"read {sb.reads[i].name}: its quality "
-                             f"string ({qlen}) is shorter than the "
-                             f"minimizers it covers")
-        # one ufunc: each numpy call on the batch may hand the GIL to the
-        # pipeline's other threads
-        np.minimum(mapqs, caps[:-1], out=mapqs, casting="unsafe")
-        return mapqs
 
     def _cap_begin(self, sb: "ScoredBatch") -> PendingCaps:
         """mapq_cap for sb's reads, cap_rule applied: on the CPU computed
         here; on the card uploaded (_cap_upload) and launched on the cap's
         stream, the result copied to pinned host memory behind an
-        event."""
-        inputs = self._cap_inputs(sb)
-        if inputs is None:
-            return PendingCaps()
-        from ..ops.cuda_mapqcap import mapq_cap
+        event. Spans: cap.begin, and inside it cap.inputs and
+        cap.upload."""
+        clock = self.stage_clock
+        with clock.span("cap.begin", cpu=True):
+            with clock.span("cap.inputs"):
+                inputs = self._cap_inputs(sb)
+            if inputs is None:
+                return PendingCaps()
+            from ..ops.cuda_mapqcap import mapq_cap
 
-        codes2d, rlen, quals, qoff = inputs
-        keys, stream = self._cap_keys()
-        k, w = self.index.k, self.index.w
-        if stream is None:                   # the CPU: the plain version
-            t = torch.from_numpy
-            caps = mapq_cap(t(np.ascontiguousarray(codes2d)), t(rlen),
-                            t(quals.copy()), t(qoff), keys, k=k, w=w)
-            return PendingCaps(cap_rule(caps), qoff)
-        with torch.cuda.stream(stream):
-            dev = self._cap_upload(stream, codes2d, rlen, quals, qoff)
-            caps = cap_rule(mapq_cap(*dev, keys, k=k, w=w))
-            host = torch.empty(caps.shape, dtype=caps.dtype,
-                               pin_memory=True)
-            host.copy_(caps, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return PendingCaps(host, qoff, event)
+            codes2d, rlen, quals, qoff = inputs
+            keys, stream = self._cap_keys()
+            k, w = self.index.k, self.index.w
+            if stream is None:               # the CPU: the plain version
+                t = torch.from_numpy
+                caps = mapq_cap(t(np.ascontiguousarray(codes2d)), t(rlen),
+                                t(quals.copy()), t(qoff), keys, k=k, w=w)
+                return PendingCaps(cap_rule(caps), qoff)
+            with torch.cuda.stream(stream):
+                with clock.span("cap.upload"):
+                    dev = self._cap_upload(stream, codes2d, rlen, quals,
+                                           qoff)
+                caps = cap_rule(mapq_cap(*dev, keys, k=k, w=w))
+                host = torch.empty(caps.shape, dtype=caps.dtype,
+                                   pin_memory=True)
+                host.copy_(caps, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+            return PendingCaps(host, qoff, event)
 
     def _cap_inputs(self, sb: "ScoredBatch") -> Optional[tuple]:
         """mapq_cap's host inputs for a batch, None where no read has a
@@ -1494,14 +1519,15 @@ class GiraffeMapper:
         """(codes2d, rlen, quals, qoff) on the card from one copy on the
         cap's stream: laid out (qoff, rlen, codes2d, quals) in a reusable
         pinned staging buffer, which the next call writes only after this
-        copy's event has passed."""
+        copy's event has passed (a wait in span cap.wait)."""
         R, L = codes2d.shape
         ends = np.cumsum([8 * (R + 1), 4 * R, R * L, quals.size]).tolist()
         n = ends[-1]
         with self._stage_lock:
             buf, done = self._cap_stage
             if done is not None and not done.query():
-                done.synchronize()
+                with self.stage_clock.span("cap.wait"):
+                    done.synchronize()
             if buf is None or buf.numel() < n:
                 buf = torch.empty(-(-n // (1 << 20)) << 20,
                                   dtype=torch.uint8, pin_memory=True)
@@ -1752,23 +1778,12 @@ class GiraffeMapper:
         build_records=False (the paired fast path), fast/ta rows stay
         None in the records list — materializing 12k memoryview slices
         per mate per batch costs more than the rest of the bookkeeping;
-        records_from_spans fills them on demand."""
-        import os as _os
-        import time as _time
-
+        records_from_spans fills them on demand. Spans: emit.native (the
+        native gapless records) and emit.slow (every other row)."""
         from ..native import lib as native_lib, native_emit_gapless_gam
 
         if native_lib() is None:
             return None
-        prof = _os.environ.get("VGTPU_EMIT_PROF")
-
-        def _mark(key, t0):
-            d = self._espans_prof          # pre-created in __init__
-            t1 = _time.perf_counter()
-            d[key] = d.get(key, 0.0) + (t1 - t0)
-            return t1
-
-        _t = _time.perf_counter() if prof else 0
         p = self.params
         R = len(sb.reads)
         B = p.band_radius
@@ -1828,8 +1843,6 @@ class GiraffeMapper:
             hrows = ar
             mism_h = host_mism(hrows) if R else None
             mm = mism_h.sum(axis=1) if R else np.zeros(0, np.int64)
-        if prof:
-            _t = _mark("mism", _t)
         gl_score = (L_arr - mm) * p.match - mm * p.mismatch \
             + 2 * p.full_length_bonus
         # in-range winners only (see emit_chosen): overhanging intervals
@@ -1911,12 +1924,9 @@ class GiraffeMapper:
                 "ref_rev": rrev.astype(np.uint8),
                 "refname_off": refname_off, "refnames": refnames,
             }
-            if prof:
-                _t = _mark("fastprep", _t)
             cap = int(read_off[-1] * 6 + Nw * 512 + 4096)
-            res = native_emit_gapless_gam(arrs, cap)
-            if prof:
-                _t = _mark("native_emit", _t)
+            with self.stage_clock.span("emit.native"):
+                res = native_emit_gapless_gam(arrs, cap)
             if res is None:
                 return None
             buf, rec_off = res
@@ -1929,69 +1939,62 @@ class GiraffeMapper:
         # fallback: unmapped reads encode cheaply; indel/overhang winners
         # get the host traceback but batch through ONE native runs->GAM
         # encode (graph/POA winners keep the object path — rare)
-        if prof:
-            _t = _mark("fastrec", _t)
-        slow = np.nonzero(~fast)[0]
-        misc_rows: List[int] = []        # rows whose record is a Python
-        ta_buf = None                    # bytes object (joined for spans)
-        ta_off = None
-        ta_row_ids: List[int] = []
-        ta_rows: List[Tuple[int, object, int]] = []
-        # batch the common slow case (clean in-band indel winners) into
-        # ONE native OpenMP traceback call; rows it can't certify
-        # (score disagreement, clipping, wide-band/graph-fallback
-        # conditions) take the full per-row path below
-        mapped_slow = [int(i) for i in slow if any_valid[i]]
-        batch_ta = (self._traceback_slow_batch(
-                        sb, mapped_slow, diag, lo, hi, rev, best_s)
-                    if len(mapped_slow) >= 2 else {})
-        if prof:
-            _t = _mark("slow_batch", _t)
-        for i in slow:
-            if not any_valid[i]:
-                r = sb.reads[i]
-                qual = bytes((ord(q) - 33) for q in r.quality) \
-                    if r.quality else b""
-                records[i] = Alignment(
-                    name=r.name, sequence=r.sequence,
-                    quality=qual).encode()
-                misc_rows.append(i)
-                continue
-            res = batch_ta.get(int(i))
-            if res is None:
-                res = self._traceback_ta(
-                    sb.codes[i], sb.codes_rc[i], int(diag[i]) - B,
-                    int(lo[i]), int(hi[i]), bool(rev[i]),
-                    int(best_s[i]))
-            if res[0] == "ta" and res[1].text_end > res[1].text_start:
-                ta_rows.append((i, res[1], res[2]))
-            else:
-                r = sb.reads[i]
-                qual = bytes((ord(q) - 33) for q in r.quality) \
-                    if r.quality else b""
-                aln = Alignment(name=r.name, sequence=r.sequence,
-                                quality=qual)
-                aln.mapping_quality = int(mapqs[i])
-                self._apply_traceback(aln, res, sb.codes[i],
-                                      sb.codes_rc[i], bool(rev[i]))
-                records[i] = aln.encode()
-                misc_rows.append(i)
-        if prof:
-            _t = _mark("slow_loop", _t)
-        if ta_rows:
-            ta_res = self._emit_ta_runs(sb, ta_rows, mapqs, rev)
-            if ta_res is None:
-                for i, _, _ in ta_rows:
-                    aln = self.emit(sb, i, int(best_j[i]), int(mapqs[i]))
+        with self.stage_clock.span("emit.slow"):
+            slow = np.nonzero(~fast)[0]
+            misc_rows: List[int] = []        # rows whose record is a Python
+            ta_buf = None                    # bytes object (joined for spans)
+            ta_off = None
+            ta_row_ids: List[int] = []
+            ta_rows: List[Tuple[int, object, int]] = []
+            # batch the common slow case (clean in-band indel winners) into
+            # ONE native OpenMP traceback call; rows it can't certify
+            # (score disagreement, clipping, wide-band/graph-fallback
+            # conditions) take the full per-row path below
+            mapped_slow = [int(i) for i in slow if any_valid[i]]
+            batch_ta = (self._traceback_slow_batch(
+                            sb, mapped_slow, diag, lo, hi, rev, best_s)
+                        if len(mapped_slow) >= 2 else {})
+            for i in slow:
+                if not any_valid[i]:
+                    r = sb.reads[i]
+                    qual = bytes((ord(q) - 33) for q in r.quality) \
+                        if r.quality else b""
+                    records[i] = Alignment(
+                        name=r.name, sequence=r.sequence,
+                        quality=qual).encode()
+                    misc_rows.append(i)
+                    continue
+                res = batch_ta.get(int(i))
+                if res is None:
+                    res = self._traceback_ta(
+                        sb.codes[i], sb.codes_rc[i], int(diag[i]) - B,
+                        int(lo[i]), int(hi[i]), bool(rev[i]),
+                        int(best_s[i]))
+                if res[0] == "ta" and res[1].text_end > res[1].text_start:
+                    ta_rows.append((i, res[1], res[2]))
+                else:
+                    r = sb.reads[i]
+                    qual = bytes((ord(q) - 33) for q in r.quality) \
+                        if r.quality else b""
+                    aln = Alignment(name=r.name, sequence=r.sequence,
+                                    quality=qual)
+                    aln.mapping_quality = int(mapqs[i])
+                    self._apply_traceback(aln, res, sb.codes[i],
+                                          sb.codes_rc[i], bool(rev[i]))
                     records[i] = aln.encode()
                     misc_rows.append(i)
-            else:
-                recs, ta_buf, ta_off = ta_res
-                ta_row_ids = [i for i, _, _ in ta_rows]
-                for (i, _, _), rec in zip(ta_rows, recs):
-                    records[i] = rec
-        if prof:
-            _t = _mark("slowrows", _t)
+            if ta_rows:
+                ta_res = self._emit_ta_runs(sb, ta_rows, mapqs, rev)
+                if ta_res is None:
+                    for i, _, _ in ta_rows:
+                        aln = self.emit(sb, i, int(best_j[i]), int(mapqs[i]))
+                        records[i] = aln.encode()
+                        misc_rows.append(i)
+                else:
+                    recs, ta_buf, ta_off = ta_res
+                    ta_row_ids = [i for i, _, _ in ta_rows]
+                    for (i, _, _), rec in zip(ta_rows, recs):
+                        records[i] = rec
         # span map: where each record's bytes live, for the native
         # scatter-gather pair finalizer
         src_id = np.zeros(R, np.uint8)

@@ -16,6 +16,7 @@ Copied from vg_tpu/parallel/pipeline.py.
 """
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Iterable, Iterator, List, Optional
@@ -95,7 +96,14 @@ def map_pairs_encoded_mt(paired_mapper, pair_batches: Iterable,
     call can use. stage_emit on distinct batches only shares read-only
     mapper state once the fragment model is finalized — warmup items
     (which mutate the fragment model) are serialized by the paired
-    mapper's emit lock."""
+    mapper's emit lock.
+
+    Where the mapper has a stage clock (utils/stagetime), each thread's
+    blocking queue calls are spans of it: wait.score_out (the seeder held
+    back by a full queue downstream), wait.rescue_in, wait.rescue_out,
+    wait.emit_in (the emitters idle for want of input) and wait.emit_out;
+    and each stage call's spans carry its batch's sequence number."""
+    span, set_batch = _clock_of(paired_mapper)
     q_scored: "queue.Queue" = queue.Queue(maxsize=depth)
     q_resc: "queue.Queue" = queue.Queue(maxsize=depth)
     q_out: "queue.Queue" = queue.Queue(maxsize=depth + emitters)
@@ -120,8 +128,11 @@ def map_pairs_encoded_mt(paired_mapper, pair_batches: Iterable,
                 if nxt is None:
                     break
                 seq, batch = nxt
+                set_batch(seq)
                 try:
-                    q_scored.put((seq, paired_mapper.stage_score(batch)))
+                    item = paired_mapper.stage_score(batch)
+                    with span("wait.score_out"):
+                        q_scored.put((seq, item))
                 except BaseException as e:
                     # mark the claimed seq as lost so the rescuer's
                     # in-order release can advance past the gap instead
@@ -129,6 +140,7 @@ def map_pairs_encoded_mt(paired_mapper, pair_batches: Iterable,
                     err.append(e)
                     q_scored.put((seq, LOST))
                     break
+                set_batch(None)
         except BaseException as e:
             err.append(e)
         finally:
@@ -140,7 +152,8 @@ def map_pairs_encoded_mt(paired_mapper, pair_batches: Iterable,
         live = seeders
         try:
             while True:
-                got = q_scored.get()
+                with span("wait.rescue_in"):
+                    got = q_scored.get()
                 if got is DONE:
                     live -= 1
                     if live == 0:
@@ -151,8 +164,11 @@ def map_pairs_encoded_mt(paired_mapper, pair_batches: Iterable,
                 while want in pending:
                     item = pending.pop(want)
                     if item is not LOST:
-                        q_resc.put(
-                            (want, paired_mapper.stage_rescue(item)))
+                        set_batch(want)
+                        item = paired_mapper.stage_rescue(item)
+                        with span("wait.rescue_out"):
+                            q_resc.put((want, item))
+                        set_batch(None)
                     want += 1
             # a seeder died mid-stream: drain whatever arrived in order
             for seq in sorted(pending):
@@ -171,11 +187,16 @@ def map_pairs_encoded_mt(paired_mapper, pair_batches: Iterable,
     def emitter():
         try:
             while True:
-                got = q_resc.get()
+                with span("wait.emit_in"):
+                    got = q_resc.get()
                 if got is DONE:
                     break
                 seq, item = got
-                q_out.put((seq, paired_mapper.stage_emit(item)))
+                set_batch(seq)
+                recs = paired_mapper.stage_emit(item)
+                with span("wait.emit_out"):
+                    q_out.put((seq, recs))
+                set_batch(None)
         except BaseException as e:
             err.append(e)
         finally:
@@ -213,3 +234,12 @@ def map_pairs_encoded_mt(paired_mapper, pair_batches: Iterable,
         t.join()
     if err:
         raise err[0]
+
+
+def _clock_of(mapper):
+    """(span, set_batch) of the mapper's stage clock, or stand-ins that
+    record nothing for a mapper without one."""
+    clock = getattr(mapper, "stage_clock", None)
+    if clock is None:
+        return (lambda name: contextlib.nullcontext()), (lambda seq: None)
+    return clock.span, clock.set_batch
