@@ -32,7 +32,10 @@ index arrays, the packed single-end steps with host or device seeding, the
 DP dispatch, quality-adjusted or not) runs in torch on the mapper's device,
 whose banded DP is the CUDA kernel of ops/cuda_align.py and whose device
 seeding runs the kernels of ops/cuda_seed.py. The host stages are
-unchanged.
+unchanged but encoded emission: one native call writes a batch's records
+(emit_chosen_encoded, native/pair_emit.cpp) where the reference's
+emit_chosen_spans gathered them from several; the seeder's joined
+sequences and the cap's joined qualities ride on the ScoredBatch for it.
 """
 from __future__ import annotations
 
@@ -166,6 +169,11 @@ class ScoredBatch:
     # the MAPQ caps begun by GiraffeMapper.begin_mapq_caps, for
     # apply_mapq_caps to finish
     caps_pending: Optional["PendingCaps"] = None
+    # (offsets, bytes) of the reads' sequences joined, as the seeder
+    # encoded them (prepare_batch), and of their FASTQ quality strings, as
+    # the cap's input build joined them (_cap_inputs): kept for emit
+    seq_blob: Optional[tuple] = None
+    qual_blob: Optional[tuple] = None
 
     @property
     def scores(self) -> np.ndarray:
@@ -184,6 +192,11 @@ class ScoredBatch:
 
         def view(lo, hi):
             cut = (lambda x: None if x is None else x[lo:hi])
+            seq_blob = None
+            if self.seq_blob is not None:
+                off, data = self.seq_blob
+                seq_blob = (off[lo : hi + 1] - off[lo],
+                            data[off[lo] : off[hi]])
             return ScoredBatch(
                 self.reads[lo:hi], self.codes[lo:hi], self.codes_rc[lo:hi],
                 self.cand_start[lo:hi], self.cand_lo[lo:hi],
@@ -192,7 +205,7 @@ class ScoredBatch:
                 cand_refpath=cut(self.cand_refpath),
                 cand_refoff=cut(self.cand_refoff),
                 codes2d=cut(self.codes2d),
-                codes_rc2d=cut(self.codes_rc2d))
+                codes_rc2d=cut(self.codes_rc2d), seq_blob=seq_blob)
 
         return view(0, n), view(n, R)
 
@@ -363,6 +376,7 @@ class GiraffeMapper:
             self._node_ref_path[idx] = local_of[pi]
             self._node_ref_off[idx] = step_off
             self._node_ref_rev[idx] = step_rev
+        self._emit_graph_state = self._emit_graph()
         from ..utils.funnel import Funnel
 
         self.funnel = Funnel()
@@ -666,7 +680,8 @@ class GiraffeMapper:
             cand_valid=prep["cand_valid"][:R], scores_raw=scores_dev,
             cand_refpath=prep["cand_refpath"],
             cand_refoff=prep["cand_refoff"],
-            codes2d=prep["reads_arr"], codes_rc2d=prep["reads_rc_arr"])
+            codes2d=prep["reads_arr"], codes_rc2d=prep["reads_rc_arr"],
+            seq_blob=prep["seq_blob"])
 
     def _resident_seed_arrays(self):
         """Device-resident minimizer index (split 64-bit keys) for
@@ -725,7 +740,7 @@ class GiraffeMapper:
         Rpad = -(-R // 64) * 64
         rlens = np.zeros(Rpad, dtype=np.int32)
         rlens[:R] = rlens_real
-        packed2 = exc2 = None
+        packed2 = exc2 = seq_blob = None
         n_exc = -1
         reads_arr = reads_rc_arr = None
         clock = self.stage_clock
@@ -733,6 +748,10 @@ class GiraffeMapper:
             if equal_len:
                 L0 = int(lens[0])
                 blob = "".join(r.sequence for r in reads)
+                enc = blob.encode()
+                if len(enc) == len(blob):      # ASCII: kept for emit
+                    seq_blob = (np.arange(R + 1, dtype=np.int64) * L0,
+                                np.frombuffer(enc or b"\0", np.uint8))
                 # fused native pass: encode + reverse complement + the
                 # 2-bit wire words (ops/xfer.pack_reads2 semantics) in
                 # one OpenMP sweep — three numpy passes (~2 us/read)
@@ -740,7 +759,7 @@ class GiraffeMapper:
                 from ..native import native_encode_pack_reads
                 from ..ops.xfer import EXC_CAP
 
-                res_n = native_encode_pack_reads(blob.encode(), R, L0,
+                res_n = native_encode_pack_reads(enc, R, L0,
                                                  Rpad, RL, EXC_CAP,
                                                  want_packed=want_packed2)
                 if res_n is not None:
@@ -844,6 +863,7 @@ class GiraffeMapper:
             "cand_valid": cand_valid, "cand_refpath": cand_refpath,
             "cand_refoff": cand_refoff,
             "packed2": packed2, "exc2": exc2, "n_exc": n_exc,
+            "seq_blob": seq_blob,
         }
 
     def _diag_refproj(self, cand_start: np.ndarray,
@@ -1161,7 +1181,8 @@ class GiraffeMapper:
             cand_valid=prep["cand_valid"][:R], scores_raw=None,
             cand_refpath=prep["cand_refpath"],
             cand_refoff=prep["cand_refoff"],
-            codes2d=prep["reads_arr"], codes_rc2d=prep["reads_rc_arr"])
+            codes2d=prep["reads_arr"], codes_rc2d=prep["reads_rc_arr"],
+            seq_blob=prep["seq_blob"])
         Rpad, C = prep["cand_start"].shape
         s_i8 = (rp.shape[1] * 8 + 2 * self.params.full_length_bonus <= 191
                 and C % 2 == 0)
@@ -1499,9 +1520,11 @@ class GiraffeMapper:
         """mapq_cap's host inputs for a batch, None where no read has a
         quality: codes2d (R, L) uint8 (the batch's padded codes where it
         has them), rlen (R,) int32, quals the quality strings' bytes
-        joined (str_blob: one join, one encode), qoff (R + 1,) int64."""
+        joined (str_blob: one join, one encode), qoff (R + 1,) int64.
+        The joined qualities are kept on sb (qual_blob) for emit."""
         qoff, quals = str_blob([getattr(r, "quality", None) or ""
                                 for r in sb.reads])
+        sb.qual_blob = (qoff, quals)
         if not qoff[-1]:
             return None
         R = len(sb.reads)
@@ -1748,286 +1771,187 @@ class GiraffeMapper:
 
     def emit_chosen_encoded(self, sb: "ScoredBatch", best_j: np.ndarray,
                             mapqs: np.ndarray, any_valid: np.ndarray):
-        res = self.emit_chosen_spans(sb, best_j, mapqs, any_valid,
-                                     build_records=True)
-        return None if res is None else res[0]
+        """The chosen candidate of each read as GAM records in read order,
+        or None where native/pair_emit is missing or refuses the batch
+        (the caller then encodes Alignment objects). Spans: emit.spans
+        (the mate made ready, _emit_mate) and emit.finalize (the records
+        written). Counts the rows in stage_seconds: emit.rows_native and
+        emit.rows_fallback.
 
-    @staticmethod
-    def records_from_spans(records, spans):
-        """Fill the None entries of a build_records=False result with
-        memoryview slices into the span buffers."""
-        bufs, src_id, off, ln = spans
-        mvs = [memoryview(b) for b in bufs]
-        sid = src_id.tolist()
-        o = off.tolist()
-        n = ln.tolist()
-        for i in range(len(records)):
-            if records[i] is None:
-                records[i] = mvs[sid[i]][o[i] : o[i] + n[i]]
-        return records
+        Changed from vg_tpu/map/giraffe.py, whose emit_chosen_spans
+        gathers the mismatch masks and the refpos in numpy and writes the
+        gapless rows (vgtpu_host.cpp's emit_gapless_gam) apart from the
+        others: here one call of pair_emit's emit_records writes every
+        row, without the interpreter lock, and splices in the rows off
+        the gapless path that _offpath_records encoded."""
+        from ..native import pair_emit
 
-    def emit_chosen_spans(self, sb: "ScoredBatch", best_j: np.ndarray,
-                          mapqs: np.ndarray, any_valid: np.ndarray,
-                          build_records: bool = False):
-        """emit_chosen_encoded plus a span map describing where each
-        record's bytes live: (records, (buffers, src_id, off, len)) with
-        per-row (src_id[i], off[i], len[i]) into buffers[src_id[i]] —
-        the paired emitter feeds these straight into the native
-        scatter-gather record finalizer (native concat_spans) so no
-        per-record Python concatenation remains on the hot path. With
-        build_records=False (the paired fast path), fast/ta rows stay
-        None in the records list — materializing 12k memoryview slices
-        per mate per batch costs more than the rest of the bookkeeping;
-        records_from_spans fills them on demand. Spans: emit.native (the
-        native gapless records) and emit.slow (every other row)."""
-        from ..native import lib as native_lib, native_emit_gapless_gam
+        if not len(sb.reads):
+            return []
+        L_ = pair_emit.lib()
+        recs = None
+        if L_ is not None:
+            with self.stage_clock.span("emit.spans"):
+                mate = self._emit_mate(sb, best_j, mapqs, any_valid)
+            if mate is not None:
+                with self.stage_clock.span("emit.finalize"):
+                    recs = pair_emit.write_records(
+                        L_, self._emit_graph_state[0], [mate[0]],
+                        mate[1]["cap"])
+        self.stage_clock.add("emit.rows_native" if recs is not None
+                             else "emit.rows_fallback", len(sb.reads))
+        return recs
 
-        if native_lib() is None:
-            return None
+    def _emit_graph(self) -> tuple:
+        """(native/pair_emit's EmitGraph of this mapper, the arrays it
+        points into): built once, in __init__. A node's id, length and
+        reference position share one record (NODE_REC), and a bucket
+        index narrows each search of the step table, so that a record
+        costs few cache misses on a chromosome-scale graph."""
+        from ..native.pair_emit import BUCKET_SHIFT, NODE_REC, EmitGraph
+
         p = self.params
+        g = self.graph
+        nodes = np.zeros(len(g.node_id), NODE_REC)
+        nodes["id"] = g.node_id
+        nodes["len"] = np.diff(g.seq_start)[: len(nodes)]
+        nodes["ref_off"] = self._node_ref_off
+        nodes["ref_path"] = self._node_ref_path
+        nodes["ref_rev"] = self._node_ref_rev
+        stp = np.ascontiguousarray(self.haps.step_text_pos, np.int64)
+        T = len(self.haps.text)
+        bucket = np.searchsorted(
+            stp[1:], np.arange((T >> BUCKET_SHIFT) + 2, dtype=np.int64)
+            << BUCKET_SHIFT, side="right").astype(np.int64)
+        refname_off, refnames = str_blob(self.path_pos.path_names)
+        keep = [np.ascontiguousarray(self.haps.text, np.uint8), stp,
+                np.ascontiguousarray(self.haps.steps, np.int64), nodes,
+                bucket, refname_off, refnames]
+        d = [a.ctypes.data for a in keep]
+        return EmitGraph(d[0], T, d[1], d[2], len(keep[2]), d[3], d[4],
+                         BUCKET_SHIFT, d[5], d[6], p.match, p.mismatch,
+                         p.full_length_bonus), keep
+
+    def _emit_mate(self, sb: "ScoredBatch", best_j, mapqs, any_valid):
+        """One mate's batch made ready for native/pair_emit's
+        emit_records: its winners gathered, its names joined, its
+        sequences and qualities as the seeder and the cap joined them
+        (else joined here), its rows classified by emit_classify, and the
+        rows off the gapless path encoded by _offpath_records, to be
+        spliced in. (EmitMate, the arrays it points into and "cap", the
+        bytes its records should need), or None where the call cannot
+        take the batch (a sequence not ASCII). Spans: emit.native (the
+        rows classified) and emit.slow (the rows off the gapless path).
+        Counts emit.rows_spliced."""
+        from ..native import pair_emit
+
         R = len(sb.reads)
-        B = p.band_radius
-        scores = sb.scores
-        best_s = scores[np.arange(R), best_j]
-        mapqs = np.asarray(mapqs, np.int32)
-
-        text = self.haps.text
-        L_arr = np.array([len(c) for c in sb.codes])
-        RL = int(L_arr.max()) if R else 0
         ar = np.arange(R)
-        diag = sb.cand_start[ar, best_j].astype(np.int64) + B
-        lo = sb.cand_lo[ar, best_j]
-        hi = sb.cand_hi[ar, best_j]
-        rev = sb.cand_rev[ar, best_j]
-
-        def host_mism(rows):
-            """(len(rows), RL) winner mismatch mask via text-window
-            gather — only for rows without a device-computed bitmap."""
-            pos = diag[rows, None] + np.arange(RL)
-            okr = ((pos >= lo[rows, None]) & (pos < hi[rows, None])
-                   & (pos >= 0) & (pos < len(text)))
-            twr = np.where(okr, text[np.clip(pos, 0, len(text) - 1)],
-                           align_ops.SENTINEL).astype(np.uint8)
-            if sb.codes2d is not None and sb.codes2d.shape[1] >= RL:
-                orr = np.where(rev[rows, None], sb.codes_rc2d[rows, :RL],
-                               sb.codes2d[rows, :RL])
-            else:
-                orr = np.full((len(rows), RL), 5, np.uint8)
-                for k, i in enumerate(rows):
-                    c = sb.codes_rc[i] if rev[i] else sb.codes[i]
-                    orr[k, : len(c)] = c
-            inr = np.arange(RL)[None, :] < L_arr[rows, None]
-            return ((twr != orr) | (orr >= 4)) & inr
-
+        bj = np.ascontiguousarray(best_j, np.int64)
+        keep = {
+            "diag": sb.cand_start[ar, bj].astype(np.int64)
+                    + self.params.band_radius,
+            "lo": sb.cand_lo[ar, bj].astype(np.int32, copy=False),
+            "hi": sb.cand_hi[ar, bj].astype(np.int32, copy=False),
+            "rev": sb.cand_rev[ar, bj].view(np.uint8),
+            "best_s": sb.scores[ar, bj].astype(np.int32, copy=False),
+            "mapq": np.ascontiguousarray(mapqs, np.int32),
+            "any": np.ascontiguousarray(any_valid, bool).view(np.uint8),
+            "best_j": bj, "kind": np.empty(R, np.uint8),
+            "mm": np.empty(R, np.int32)}
+        names = str_blob([r.name for r in sb.reads])
+        seqs = sb.seq_blob
+        if seqs is None:
+            seqs = str_blob([r.sequence for r in sb.reads])
+        quals = sb.qual_blob
+        if quals is None:
+            quals = str_blob([r.quality or "" for r in sb.reads])
+        keep["blobs"] = (names, seqs, quals)
+        mode, dev_j, dev_mm, pay = 0, None, None, None
         wm = sb.winner_mism
-        pos_mode = wm is not None and wm[2].dtype == np.uint8
-        if wm is not None and not R:
-            wm = None
-        elif wm is not None and not pos_mode \
-                and wm[2].shape[1] * 32 < RL:
-            wm = None
         if wm is not None:
-            dev_j, mm_dev, payload = wm
-            use_dev = best_j == dev_j[:R]
-            if pos_mode:
-                # the payload carries only the first 8 mismatch
-                # positions: rows with more recompute on host
-                use_dev &= mm_dev[:R] <= 8
-            mm = np.where(use_dev, mm_dev[:R], 0).astype(np.int64)
-            hrows = np.nonzero(~use_dev)[0]
-            mism_h = host_mism(hrows) if len(hrows) else None
-            if mism_h is not None:
-                mm[hrows] = mism_h.sum(axis=1)
-        else:
-            use_dev = np.zeros(R, bool)
-            hrows = ar
-            mism_h = host_mism(hrows) if R else None
-            mm = mism_h.sum(axis=1) if R else np.zeros(0, np.int64)
-        gl_score = (L_arr - mm) * p.match - mm * p.mismatch \
-            + 2 * p.full_length_bonus
-        # in-range winners only (see emit_chosen): overhanging intervals
-        # go through _traceback_into, which handles sentinel-masked windows
-        fast = (any_valid & (gl_score == best_s)
-                & (diag >= lo) & (diag + L_arr <= hi))
-        w = np.nonzero(fast)[0]
-        Nw = len(w)
-        mism_w = np.zeros((Nw, RL), np.uint8)
-        if Nw:
-            wd = use_dev[w]
-            if wd.any():
-                if pos_mode:
-                    from ..ops.xfer import pos8_to_mism_rows
-
-                    mism_w[wd] = pos8_to_mism_rows(
-                        wm[2][w[wd]], mm[w[wd]].astype(np.int64), RL)
-                else:
-                    bw = np.ascontiguousarray(
-                        wm[2][w[wd]]).view(np.uint32)
-                    unp = np.unpackbits(
-                        bw.view(np.uint8).reshape(int(wd.sum()), -1),
-                        axis=1, bitorder="little")
-                    mism_w[wd] = unp[:, :RL]
-            if (~wd).any():
-                posh = np.searchsorted(hrows, w[~wd])
-                mism_w[~wd] = mism_h[posh, :RL]
-
-        records: List[object] = [None] * R
-        if Nw:
-            t0 = diag[w]
-            t1 = t0 + L_arr[w]
-            # refpos of the alignment's first mapping (vectorized
-            # positions_of): fwd winners anchor at t0's node; rev winners
-            # at t1's node in flipped orientation
-            stp = self.haps.step_text_pos
-            si0 = np.searchsorted(stp[1:], t0, side="right")
-            si1 = np.searchsorted(stp[1:], t1 - 1, side="right")
-            si = np.where(rev[w], si1, si0)
-            h = self.haps.steps[si]
-            nidx = (h >> 1).astype(np.int64)
-            nlen = (self.graph.seq_start[nidx + 1]
-                    - self.graph.seq_start[nidx])
-            off_fwd = t0 - stp[si0]
-            off_rev = nlen - (t1 - stp[si1])
-            moff = np.where(rev[w], off_rev, off_fwd)
-            mrev = (h & 1).astype(bool) ^ rev[w]
-            rp = self._node_ref_path[nidx]
-            step_off = self._node_ref_off[nidx]
-            step_rev = self._node_ref_rev[nidx]
-            same_or = mrev == step_rev
-            roff = np.where(same_or, step_off + moff,
-                            step_off + (nlen - moff))
-            rrev = ~same_or
-            wl = w.tolist()
-            name_off, names = str_blob([sb.reads[i].name for i in wl])
-            read_off, reads_blob = str_blob(
-                [sb.reads[i].sequence for i in wl])
-            qual_off, quals = qual_blob(
-                [sb.reads[i].quality for i in wl])
-            refname_off, refnames = str_blob(self.path_pos.path_names)
-            arrs = {
-                "N": Nw, "t0": t0, "t1": t1,
-                "rev": rev[w].astype(np.uint8),
-                "mapq": mapqs[w].astype(np.int32),
-                "score": best_s[w].astype(np.int32),
-                "name_off": name_off, "names": names,
-                "read_off": read_off, "reads": reads_blob,
-                "qual_off": qual_off, "quals": quals,
-                "mism": mism_w,
-                "RL": RL, "rlen": L_arr[w].astype(np.int64),
-                "step_text_pos": self.haps.step_text_pos,
-                "steps": self.haps.steps,
-                "n_steps": len(self.haps.steps),
-                "node_id": self.graph.node_id,
-                "seq_start": self.graph.seq_start,
-                "ref_path": rp.astype(np.int32),
-                "ref_off": roff.astype(np.int64),
-                "ref_rev": rrev.astype(np.uint8),
-                "refname_off": refname_off, "refnames": refnames,
-            }
-            cap = int(read_off[-1] * 6 + Nw * 512 + 4096)
-            with self.stage_clock.span("emit.native"):
-                res = native_emit_gapless_gam(arrs, cap)
-            if res is None:
+            mode = 1 if wm[2].dtype == np.uint8 else 2
+            dev_j = np.ascontiguousarray(wm[0][:R], np.int64)
+            dev_mm = np.ascontiguousarray(wm[1][:R], np.int32)
+            pay = np.ascontiguousarray(wm[2][:R]).view(np.uint8)
+            keep["dev"] = (dev_j, dev_mm, pay)
+        ptr = lambda a: None if a is None else a.ctypes.data
+        k = keep
+        m = pair_emit.EmitMate(
+            R, ptr(k["diag"]), ptr(k["lo"]), ptr(k["hi"]), ptr(k["rev"]),
+            ptr(k["best_s"]), ptr(k["mapq"]), ptr(k["any"]),
+            ptr(k["best_j"]), mode, ptr(dev_j), ptr(dev_mm), ptr(pay),
+            0 if pay is None else pay.shape[1],
+            ptr(names[0]), ptr(names[1]), ptr(seqs[0]), ptr(seqs[1]),
+            ptr(quals[0]), ptr(quals[1]), None, None, None,
+            ptr(k["kind"]), ptr(k["mm"]))
+        with self.stage_clock.span("emit.native"):
+            if pair_emit.lib().emit_classify(self._emit_graph_state[0],
+                                             m) < 0:
                 return None
-            buf, rec_off = res
-            if build_records:
-                mv = memoryview(buf)
-                ro = rec_off.tolist()
-                for k, i in enumerate(w.tolist()):
-                    records[i] = mv[ro[k] : ro[k + 1]]
+        # each record's fields, tags and numbers, and its name once more
+        # as its mate's fragment field
+        k["cap"] = (4096 + 384 * R + 3 * int(seqs[0][-1])
+                    + int(quals[0][-1]) + 2 * int(names[0][-1]))
+        slow = np.nonzero(k["kind"] == 2)[0].tolist()
+        self.stage_clock.add("emit.rows_spliced", len(slow))
+        if slow:
+            with self.stage_clock.span("emit.slow"):
+                done = self._offpath_records(
+                    sb, slow, bj, k["mapq"], k["diag"], k["lo"], k["hi"],
+                    k["rev"].view(bool), k["best_s"])
+                ext_len = np.full(R, -1, np.int64)
+                ext_len[slow] = [len(done[i]) for i in slow]
+                ext_off = np.zeros(R, np.int64)
+                ext_off[slow] = np.cumsum(ext_len[slow]) - ext_len[slow]
+                ext = np.frombuffer(
+                    b"".join(bytes(done[i]) for i in slow), np.uint8)
+            keep["ext"] = (ext_off, ext_len, ext)
+            k["cap"] += ext.size
+            m.ext_off, m.ext_len, m.ext = (ptr(ext_off), ptr(ext_len),
+                                           ptr(ext))
+        return m, keep
 
-        # fallback: unmapped reads encode cheaply; indel/overhang winners
-        # get the host traceback but batch through ONE native runs->GAM
-        # encode (graph/POA winners keep the object path — rare)
-        with self.stage_clock.span("emit.slow"):
-            slow = np.nonzero(~fast)[0]
-            misc_rows: List[int] = []        # rows whose record is a Python
-            ta_buf = None                    # bytes object (joined for spans)
-            ta_off = None
-            ta_row_ids: List[int] = []
-            ta_rows: List[Tuple[int, object, int]] = []
-            # batch the common slow case (clean in-band indel winners) into
-            # ONE native OpenMP traceback call; rows it can't certify
-            # (score disagreement, clipping, wide-band/graph-fallback
-            # conditions) take the full per-row path below
-            mapped_slow = [int(i) for i in slow if any_valid[i]]
-            batch_ta = (self._traceback_slow_batch(
-                            sb, mapped_slow, diag, lo, hi, rev, best_s)
-                        if len(mapped_slow) >= 2 else {})
-            for i in slow:
-                if not any_valid[i]:
-                    r = sb.reads[i]
-                    qual = bytes((ord(q) - 33) for q in r.quality) \
-                        if r.quality else b""
-                    records[i] = Alignment(
-                        name=r.name, sequence=r.sequence,
-                        quality=qual).encode()
-                    misc_rows.append(i)
-                    continue
-                res = batch_ta.get(int(i))
-                if res is None:
-                    res = self._traceback_ta(
-                        sb.codes[i], sb.codes_rc[i], int(diag[i]) - B,
-                        int(lo[i]), int(hi[i]), bool(rev[i]),
-                        int(best_s[i]))
-                if res[0] == "ta" and res[1].text_end > res[1].text_start:
-                    ta_rows.append((i, res[1], res[2]))
-                else:
-                    r = sb.reads[i]
-                    qual = bytes((ord(q) - 33) for q in r.quality) \
-                        if r.quality else b""
-                    aln = Alignment(name=r.name, sequence=r.sequence,
-                                    quality=qual)
-                    aln.mapping_quality = int(mapqs[i])
-                    self._apply_traceback(aln, res, sb.codes[i],
-                                          sb.codes_rc[i], bool(rev[i]))
-                    records[i] = aln.encode()
-                    misc_rows.append(i)
-            if ta_rows:
-                ta_res = self._emit_ta_runs(sb, ta_rows, mapqs, rev)
-                if ta_res is None:
-                    for i, _, _ in ta_rows:
-                        aln = self.emit(sb, i, int(best_j[i]), int(mapqs[i]))
-                        records[i] = aln.encode()
-                        misc_rows.append(i)
-                else:
-                    recs, ta_buf, ta_off = ta_res
-                    ta_row_ids = [i for i, _, _ in ta_rows]
-                    for (i, _, _), rec in zip(ta_rows, recs):
-                        records[i] = rec
-        # span map: where each record's bytes live, for the native
-        # scatter-gather pair finalizer
-        src_id = np.zeros(R, np.uint8)
-        off = np.zeros(R, np.int64)
-        ln = np.zeros(R, np.int64)
-        if Nw:
-            src_id[w] = 0
-            off[w] = rec_off[:Nw]
-            ln[w] = rec_off[1 : Nw + 1] - rec_off[:Nw]
-            fast_buf = buf
-        else:
-            fast_buf = b""
-        if ta_row_ids:
-            ids = np.asarray(ta_row_ids)
-            src_id[ids] = 1
-            nta = len(ids)
-            off[ids] = ta_off[:nta]
-            ln[ids] = ta_off[1 : nta + 1] - ta_off[:nta]
-        if misc_rows:
-            ids = np.asarray(misc_rows)
-            src_id[ids] = 2
-            lens = np.array([len(records[i]) for i in misc_rows],
-                            np.int64)
-            offs = np.zeros(len(ids) + 1, np.int64)
-            np.cumsum(lens, out=offs[1:])
-            off[ids] = offs[:-1]
-            ln[ids] = lens
-            misc_blob = b"".join(bytes(records[i]) for i in misc_rows)
-        else:
-            misc_blob = b""
-        spans = ([fast_buf, ta_buf if ta_buf is not None else b"",
-                  misc_blob], src_id, off, ln)
-        return records, spans
+    def _offpath_records(self, sb: "ScoredBatch", rows, best_j, mapqs, diag,
+                         lo, hi, rev, best_s) -> dict:
+        """Records of the mapped winners off the gapless path (rows: their
+        indices): the rows one native traceback call certifies and the
+        per-row traceback for the rest; text alignments (indel and
+        overhang winners) encoded together by _emit_ta_runs, graph (POA)
+        winners as Alignment objects. {row: bytes-like}."""
+        B = self.params.band_radius
+        out = {}
+        ta_rows: List[Tuple[int, object, int]] = []
+        # batch the common case (clean in-band indel winners) into ONE
+        # native OpenMP traceback call; rows it can't certify (score
+        # disagreement, clipping, wide-band/graph-fallback conditions)
+        # take the full per-row path below
+        batch_ta = (self._traceback_slow_batch(sb, rows, diag, lo, hi,
+                                               rev, best_s)
+                    if len(rows) >= 2 else {})
+        for i in rows:
+            res = batch_ta.get(i)
+            if res is None:
+                res = self._traceback_ta(
+                    sb.codes[i], sb.codes_rc[i], int(diag[i]) - B,
+                    int(lo[i]), int(hi[i]), bool(rev[i]), int(best_s[i]))
+            if res[0] == "ta" and res[1].text_end > res[1].text_start:
+                ta_rows.append((i, res[1], res[2]))
+                continue
+            r = sb.reads[i]
+            qual = bytes((ord(q) - 33) for q in r.quality) \
+                if r.quality else b""
+            aln = Alignment(name=r.name, sequence=r.sequence, quality=qual)
+            aln.mapping_quality = int(mapqs[i])
+            self._apply_traceback(aln, res, sb.codes[i], sb.codes_rc[i],
+                                  bool(rev[i]))
+            out[i] = aln.encode()
+        if ta_rows:
+            ta_res = self._emit_ta_runs(sb, ta_rows, mapqs, rev)
+            for k, (i, _, _) in enumerate(ta_rows):
+                out[i] = (ta_res[0][k] if ta_res is not None else self.emit(
+                    sb, i, int(best_j[i]), int(mapqs[i])).encode())
+        return out
 
     def _emit_ta_runs(self, sb: "ScoredBatch", ta_rows, mapqs, rev):
         """Batch TextAlignment winners (indel / overhang tracebacks) into

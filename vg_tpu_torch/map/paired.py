@@ -24,7 +24,10 @@ Ported from vg_tpu/map/paired.py: the paired device steps (host-seeded:
 wire unpack, candidate meta; device-seeded: minimizers, lookup, soft caps,
 clustering; then banded DP for both mates, pair selection, MAPQ, winner
 payloads) run in torch on the mapper's device; the wire formats and the
-int16 output buffers are byte-for-byte the reference's.
+int16 output buffers are byte-for-byte the reference's. Encoded emission
+writes both mates' records and the pair's fields in one native call
+(native/pair_emit), where the reference runs an emitter a mate and a
+finalizer.
 """
 from __future__ import annotations
 
@@ -844,13 +847,15 @@ class PairedGiraffeMapper:
             cand_start=p1["cand_start"][:R], cand_lo=p1["cand_lo"][:R],
             cand_hi=p1["cand_hi"][:R], cand_rev=p1["cand_rev"][:R],
             cand_valid=p1["cand_valid"][:R], scores_raw=None,
-            cand_refpath=p1["cand_refpath"], cand_refoff=p1["cand_refoff"])
+            cand_refpath=p1["cand_refpath"], cand_refoff=p1["cand_refoff"],
+            seq_blob=p1["seq_blob"])
         sb2 = ScoredBatch(
             reads=reads2, codes=p2["codes"], codes_rc=p2["codes_rc"],
             cand_start=p2["cand_start"][:R], cand_lo=p2["cand_lo"][:R],
             cand_hi=p2["cand_hi"][:R], cand_rev=p2["cand_rev"][:R],
             cand_valid=p2["cand_valid"][:R], scores_raw=None,
-            cand_refpath=p2["cand_refpath"], cand_refoff=p2["cand_refoff"])
+            cand_refpath=p2["cand_refpath"], cand_refoff=p2["cand_refoff"],
+            seq_blob=p2["seq_blob"])
         sel = ("packed", packed, Rpad, C, sb1, sb2, s_i8, pos_mode,
                pw1, pw2, perm)
         return sb1, sb2, sel
@@ -960,7 +965,22 @@ class PairedGiraffeMapper:
     def _emit_pairs_encoded(self, pairs, sb1: ScoredBatch, sb2: ScoredBatch,
                             sel=None):
         """Pair-select (unless precomputed on device) + encoded emission
-        + fragment linkage."""
+        + fragment linkage: the records of both mates, interleaved, each
+        with its mate's name (fragment_next / fragment_prev) and the
+        pair's annotation (proper_pair, fragment_length), or None where
+        native/pair_emit is missing or refuses the batch (the caller then
+        encodes Alignment objects). Spans: emit.reselect, emit.spans (the
+        mates made ready, GiraffeMapper._emit_mate), emit.finalize (the
+        records written). Counts the rows in stage_seconds:
+        emit.rows_native, emit.rows_fallback.
+
+        Changed from vg_tpu/map/paired.py, where each mate's
+        emit_chosen_spans writes its records and _finalize_pairs_native
+        copies them with the name fields and annotations into one buffer:
+        here one call of pair_emit's emit_records writes it all, without
+        the interpreter lock, mate names of any length included."""
+        from ..native import pair_emit
+
         m = self.mapper
         clock = self.stage_clock
         if sel is None:
@@ -969,150 +989,26 @@ class PairedGiraffeMapper:
         j1, j2, mq1, mq2, any1, any2, use_pair, frags = sel
         mq1 = m.apply_mapq_caps(sb1, mq1)
         mq2 = m.apply_mapq_caps(sb2, mq2)
-        with clock.span("emit.spans"):
-            res1 = m.emit_chosen_spans(sb1, j1, mq1, any1)
-            res2 = m.emit_chosen_spans(sb2, j2, mq2, any2)
-        if res1 is None or res2 is None:
-            return None
-        with clock.span("emit.finalize"):
-            out = self._finalize_pairs_native(pairs, res1[1], res2[1],
-                                              any1, any2, use_pair, frags)
-            if out is None:
-                out = self._finalize_pairs_records(
-                    pairs, res1, res2, any1, any2, use_pair, frags)
-        return out
-
-    def _finalize_pairs_records(self, pairs, res1, res2, any1, any2,
-                                use_pair, frags) -> List[bytes]:
-        """_finalize_pairs_native's work in Python, record by record."""
-        m = self.mapper
-        recs1 = m.records_from_spans(*res1)
-        recs2 = m.records_from_spans(*res2)
-        from ..io.wire import field_bytes, field_str
-
-        improper = _annotation_suffix(False, 0)
-        out = []
-        for i in range(len(pairs)):
-            # fragment_next (12) on read1, fragment_prev (11) on read2:
-            # inline single-byte-varint wire building (tag 98/90, inner
-            # name field tag 26) — the generic field_bytes/field_str
-            # call chain was ~30% of emit time at production batch sizes
-            nb1 = pairs[i][1].name.encode()
-            nb2 = pairs[i][0].name.encode()
-            if len(nb1) < 124 and len(nb2) < 124:
-                nm1 = bytes((98, len(nb1) + 2, 26, len(nb1))) + nb1
-                nm2 = bytes((90, len(nb2) + 2, 26, len(nb2))) + nb2
-            else:
-                nm1 = field_bytes(12, field_str(3, pairs[i][1].name))
-                nm2 = field_bytes(11, field_str(3, pairs[i][0].name))
-            if use_pair[i]:
-                suffix = _annotation_suffix(True, int(frags[i]))
-            elif any1[i] or any2[i]:
-                suffix = improper
-            else:
-                suffix = b""
-            out.append(bytes(recs1[i]) + nm1 + suffix)
-            out.append(bytes(recs2[i]) + nm2 + suffix)
-        return out
-
-    def _finalize_pairs_native(self, pairs, sp1, sp2, any1, any2,
-                               use_pair, frags):
-        """Assemble the final interleaved pair records (record bytes +
-        fragment_next/prev mate-name field + annotation suffix) via ONE
-        native scatter-gather copy (concat_spans). Per-record Python in
-        the old loop (bytes() copies, concatenation, suffix lookups) was
-        ~1/3 of emit time at production batch sizes. Returns the record
-        list (memoryview slices of one buffer) or None to fall back."""
-        from ..native import native_concat_spans
-
-        R = len(pairs)
-        if R == 0:
+        if not len(pairs):
             return []
-        from .giraffe import str_blob
-
-        n1_off, n1_blob = str_blob([a.name for a, _ in pairs])
-        n2_off, n2_blob = str_blob([b.name for _, b in pairs])
-        l1 = np.diff(n1_off)
-        l2 = np.diff(n2_off)
-        if max(int(l1.max()), int(l2.max())) >= 124:
-            return None      # multi-byte varint names: generic wire path
-        # single-byte-varint name-field prefixes (same bytes as the
-        # fallback loop): rec1 gets fragment_next (tag 98) wrapping
-        # mate2's name, rec2 gets fragment_prev (tag 90) wrapping mate1's
-        pre = np.empty((2, R, 4), np.uint8)
-        pre[0, :, 0] = 98
-        pre[0, :, 1] = l2 + 2
-        pre[0, :, 2] = 26
-        pre[0, :, 3] = l2
-        pre[1, :, 0] = 90
-        pre[1, :, 1] = l1 + 2
-        pre[1, :, 2] = 26
-        pre[1, :, 3] = l1
-        prebuf = np.ascontiguousarray(pre.reshape(-1))
-        # suffix table: fragment lengths cluster in a few hundred values,
-        # so encode each unique annotation Struct once
-        use_pair = np.asarray(use_pair, bool)
-        anyb = np.asarray(any1, bool) | np.asarray(any2, bool)
-        fr = np.where(use_pair, np.asarray(frags).astype(np.int64), 0)
-        uf = (np.unique(fr[use_pair]) if use_pair.any()
-              else np.zeros(0, np.int64))
-        suf_parts = [_annotation_suffix(False, 0)] + \
-            [_annotation_suffix(True, int(v)) for v in uf]
-        suf_lens = np.array([len(x) for x in suf_parts], np.int64)
-        suf_offs = np.zeros(len(suf_parts) + 1, np.int64)
-        np.cumsum(suf_lens, out=suf_offs[1:])
-        suf_blob = b"".join(suf_parts)
-        sidx = np.zeros(R, np.int64)
-        if len(uf):
-            sidx[use_pair] = np.searchsorted(uf, fr[use_pair]) + 1
-        s_off = suf_offs[sidx]
-        s_len = np.where(~use_pair & ~anyb, 0, suf_lens[sidx])
-        # span table: 4 spans per record, 2 records per pair, flattened
-        # row-major so output records interleave (r1, r2) per pair
-        bufs1, id1, off1, len1 = sp1
-        bufs2, id2, off2, len2 = sp2
-        sources = (list(bufs1) + list(bufs2)
-                   + [n1_blob, n2_blob, prebuf, suf_blob])
-        N1, N2, PRE, SUF = 6, 7, 8, 9
-        sid = np.empty((R, 8), np.uint8)
-        soff = np.empty((R, 8), np.int64)
-        slen = np.empty((R, 8), np.int64)
-        ar = np.arange(R, dtype=np.int64)
-        sid[:, 0] = id1
-        soff[:, 0] = off1
-        slen[:, 0] = len1
-        sid[:, 1] = PRE
-        soff[:, 1] = 4 * ar
-        slen[:, 1] = 4
-        sid[:, 2] = N2
-        soff[:, 2] = n2_off[:-1]
-        slen[:, 2] = l2
-        sid[:, 3] = SUF
-        soff[:, 3] = s_off
-        slen[:, 3] = s_len
-        sid[:, 4] = id2 + 3
-        soff[:, 4] = off2
-        slen[:, 4] = len2
-        sid[:, 5] = PRE
-        soff[:, 5] = 4 * (R + ar)
-        slen[:, 5] = 4
-        sid[:, 6] = N1
-        soff[:, 6] = n1_off[:-1]
-        slen[:, 6] = l1
-        sid[:, 7] = SUF
-        soff[:, 7] = s_off
-        slen[:, 7] = s_len
-        flat_len = np.ascontiguousarray(slen.reshape(-1))
-        dst = np.zeros(8 * R + 1, np.int64)
-        np.cumsum(flat_len, out=dst[1:])
-        outbuf = native_concat_spans(
-            sources, sid.reshape(-1), soff.reshape(-1), flat_len,
-            dst[:-1], int(dst[-1]))
-        if outbuf is None:
-            return None
-        bl = dst[::4].tolist()           # 2R+1 record boundaries
-        mv = memoryview(outbuf)
-        return [mv[a:b] for a, b in zip(bl, bl[1:])]
+        L_ = pair_emit.lib()
+        out = mate2 = None
+        if L_ is not None:
+            with clock.span("emit.spans"):
+                mate1 = m._emit_mate(sb1, j1, mq1, any1)
+                if mate1 is not None:
+                    mate2 = m._emit_mate(sb2, j2, mq2, any2)
+            if mate2 is not None:
+                with clock.span("emit.finalize"):
+                    out = pair_emit.write_records(
+                        L_, m._emit_graph_state[0], [mate1[0], mate2[0]],
+                        mate1[1]["cap"] + mate2[1]["cap"],
+                        pair=(np.ascontiguousarray(use_pair, bool)
+                              .view(np.uint8),
+                              np.asarray(frags).astype(np.int64)))
+        clock.add("emit.rows_native" if out is not None
+                  else "emit.rows_fallback", 2 * len(pairs))
+        return out
 
     # ------------------------------------------------- pipeline stages
 
@@ -1524,27 +1420,3 @@ def _seed_scan(window: np.ndarray, read: np.ndarray, k: int) -> np.ndarray:
         members = d[d // 8 == b]
         out.append(int(np.median(members)))
     return np.array(out, np.int64)
-
-
-_SUFFIX_CACHE: dict = {}
-
-
-def _annotation_suffix(proper: bool, fragment_length: int) -> bytes:
-    """Encoded `annotation` Struct (field 100) with proper_pair and
-    fragment_length — appended to native records (protobuf field order is
-    free, so suffix concatenation is valid). Memoized: fragment lengths
-    cluster in a few hundred values, and re-encoding a Struct per pair was
-    a measurable slice of emit time."""
-    key = (proper, fragment_length)
-    out = _SUFFIX_CACHE.get(key)
-    if out is None:
-        from ..io.gam import _encode_struct
-        from ..io.wire import field_bytes
-
-        d = {"proper_pair": proper}
-        if fragment_length:
-            d["fragment_length"] = fragment_length
-        out = field_bytes(100, _encode_struct(d))
-        if len(_SUFFIX_CACHE) < 65536:
-            _SUFFIX_CACHE[key] = out
-    return out

@@ -275,100 +275,6 @@ def native_global_align(a: np.ndarray, b: np.ndarray, scoring,
     return int(score), merged
 
 
-def register_emit(L):
-    import ctypes
-
-    L.emit_gapless_gam.restype = ctypes.c_int64
-    L.emit_gapless_gam.argtypes = (
-        [ctypes.c_int64]                 # N
-        + [ctypes.c_void_p] * 12         # t0..mism (incl. qual blob)
-        + [ctypes.c_int64]               # RL
-        + [ctypes.c_void_p] * 3          # rlen, step_text_pos, steps
-        + [ctypes.c_int64]               # n_steps
-        + [ctypes.c_void_p] * 7          # node_id..refnames
-        + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p])  # out, cap, rec_off
-
-
-def native_emit_gapless_gam(arrs, out_cap):
-    """Low-level call; arrs = dict of contiguous numpy arrays (see
-    GiraffeMapper.emit_batch_encoded). Returns (buffer, rec_offsets) or
-    None when the native lib is absent / buffer too small."""
-    import ctypes
-
-    L_ = lib()
-    if L_ is None:
-        return None
-    if not hasattr(L_, "_emit_registered"):
-        register_emit(L_)
-        L_._emit_registered = True
-    N = int(arrs["N"])
-    # np.empty, not zeros: out is multi-MB per batch and the encoder
-    # overwrites [0, rec_off[N]) — a memset here was ~1.3 us/read
-    out = np.empty(out_cap, np.uint8)
-    rec_off = np.zeros(N + 1, np.int64)
-    rc = L_.emit_gapless_gam(
-        N,
-        arrs["t0"].ctypes.data, arrs["t1"].ctypes.data,
-        arrs["rev"].ctypes.data, arrs["mapq"].ctypes.data,
-        arrs["score"].ctypes.data, arrs["name_off"].ctypes.data,
-        arrs["names"].ctypes.data, arrs["read_off"].ctypes.data,
-        arrs["reads"].ctypes.data, arrs["qual_off"].ctypes.data,
-        arrs["quals"].ctypes.data, arrs["mism"].ctypes.data,
-        ctypes.c_int64(int(arrs["RL"])), arrs["rlen"].ctypes.data,
-        arrs["step_text_pos"].ctypes.data, arrs["steps"].ctypes.data,
-        ctypes.c_int64(int(arrs["n_steps"])),
-        arrs["node_id"].ctypes.data, arrs["seq_start"].ctypes.data,
-        arrs["ref_path"].ctypes.data, arrs["ref_off"].ctypes.data,
-        arrs["ref_rev"].ctypes.data, arrs["refname_off"].ctypes.data,
-        arrs["refnames"].ctypes.data,
-        out.ctypes.data, out_cap, rec_off.ctypes.data)
-    if rc != 0:
-        return None
-    return out, rec_off
-
-
-def native_concat_spans(sources, src_id, src_off, src_len, dst_off,
-                        out_size):
-    """Scatter-gather assembly of final records: span k copies
-    src_len[k] bytes from sources[src_id[k]][src_off[k]:] to
-    out[dst_off[k]:]. sources = list of contiguous uint8 arrays /
-    buffers. Returns the filled out buffer or None when the native lib
-    is absent."""
-    import ctypes
-
-    L_ = lib()
-    if L_ is None:
-        return None
-    if not hasattr(L_, "_concat_registered"):
-        L_.concat_spans.restype = ctypes.c_int64
-        L_.concat_spans.argtypes = [
-            ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64]
-        L_._concat_registered = True
-    n = len(src_id)
-    srcs_np = [np.ascontiguousarray(np.frombuffer(s, np.uint8))
-               if not isinstance(s, np.ndarray)
-               else np.ascontiguousarray(s, np.uint8) for s in sources]
-    # keep refs alive across the call
-    ptrs = (ctypes.c_void_p * len(srcs_np))(
-        *[s.ctypes.data if s.size else 0 for s in srcs_np])
-    sizes = np.array([s.size for s in srcs_np], np.int64)
-    src_id = np.ascontiguousarray(src_id, np.uint8)
-    src_off = np.ascontiguousarray(src_off, np.int64)
-    src_len = np.ascontiguousarray(src_len, np.int64)
-    dst_off = np.ascontiguousarray(dst_off, np.int64)
-    out = np.empty(int(out_size), np.uint8)
-    rc = L_.concat_spans(
-        n, ptrs, sizes.ctypes.data, src_id.ctypes.data,
-        src_off.ctypes.data, src_len.ctypes.data, dst_off.ctypes.data,
-        out.ctypes.data, int(out_size))
-    if rc != 0:
-        return None
-    return out
-
-
 def _key_buckets(index):
     """(bucket_off int64, shift) over the sorted key array: bucket_off[b]
     = first index with key >= (b << shift). Narrows each key lookup's
@@ -986,9 +892,8 @@ def native_longread_collect_links(codes_list, chain_read, chain_rev,
 
 
 def native_emit_runs_gam(arrs, out_cap: int = 0):
-    """Run-based GAM record encoder (indel-capable sibling of
-    native_emit_gapless_gam). arrs: see LongReadMapper.map_batch_encoded.
-    Returns (buffer, rec_offsets) or None when the lib is absent."""
+    """Run-based GAM record encoder (indels included). arrs: see
+    LongReadMapper.map_batch_encoded. Returns (buffer, rec_offsets) or None when the lib is absent."""
     import ctypes
 
     L_ = lib()

@@ -15,7 +15,8 @@ one input is the sequence number of the batch the thread works on (see
 `set_batch`), so that one batch's ranges on the seeder, rescuer and
 emitter threads can be matched; the profiler keeps inputs where it
 records shapes. With the profiler off a span costs two clock reads (four
-with `cpu`), a lock and a dict add.
+with `cpu`), a lock and a dict add. `add` keeps a count in the same
+dict.
 """
 from __future__ import annotations
 
@@ -50,6 +51,12 @@ class StageClock:
 
     def span(self, name: str, cpu: bool = False) -> "_Span":
         return _Span(self, name, cpu)
+
+    def add(self, name: str, value: float) -> None:
+        """Add `value` to counters[name]: a count kept beside the spans
+        (rows of a kind, say), read as the spans are."""
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0.0) + value
 
 
 class _Span:
